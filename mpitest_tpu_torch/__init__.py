@@ -1,0 +1,25 @@
+"""mpitest_tpu_torch — the sorter on PyTorch and CUDA (NVIDIA H100).
+
+A port of ``mpitest_tpu`` beside it: the same public ``sort()``, codecs,
+verifier and typed errors, with the Pallas kernels of the single-card
+path rewritten as CUDA kernels (``csrc/``).  Imports ``torch``, never
+``jax`` and nothing of ``mpitest_tpu``.
+"""
+
+from mpitest_tpu_torch.models.api import DistributedSortResult, sort
+from mpitest_tpu_torch.models.supervisor import (
+    SortFaultError,
+    SortIntegrityError,
+    SortRetryExhausted,
+)
+from mpitest_tpu_torch.utils.knobs import KnobError, NotPortedError
+
+__all__ = [
+    "DistributedSortResult",
+    "KnobError",
+    "NotPortedError",
+    "SortFaultError",
+    "SortIntegrityError",
+    "SortRetryExhausted",
+    "sort",
+]

@@ -1,0 +1,93 @@
+"""Device time by CUDA kernel on the single-card sort path.
+
+    python3 -m mpitest_tpu_torch.utils.profile_kernels
+
+Traces, with ``torch.profiler`` (CUPTI), one warm call each of:
+
+* K1 ``bitonic.sort_padded`` on 2^28 int32 words;
+* the 64-bit pair engine ``kernels.sort_two_words_bitonic`` (K2 + K3 +
+  boundary strips + residual check) on 2^27 pairs;
+* end-to-end ``sort()`` of a device-resident int32 2^28 tensor and of an
+  int64 2^27 tensor, verification on, result left on the card.
+
+For each it prints the host wall time of the window, the device time
+summed over CUDA events, their ratio (the device-busy share; one minus it
+is the idle share), and the device time per kernel name.  Every line
+carries the card's name and power limit.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from typing import Callable
+
+import torch
+
+
+def _card() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def profile(label: str, fn: Callable[[], object], card: str, top: int = 10) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    dev_ms = sum(r[0] for r in rows)
+    if not rows:
+        print(f"[profile] {label}: wall {wall_ms:.3f} ms; device time not "
+              f"measured (no CUDA events traced) | card {card}")
+        return
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms, "
+          f"busy share {dev_ms / wall_ms:.3f} | card {card}")
+    for ms, count, name in rows[:top]:
+        print(f"[profile]   {ms:9.3f} ms  {count:5d}x  {name[:110]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_kernels: no CUDA device available", file=sys.stderr)
+        return 2
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch.ops import bitonic, kernels
+
+    card = _card()
+    dev = torch.device("cuda")
+
+    def words(n: int, seed: int) -> torch.Tensor:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
+                             device=dev, generator=g)
+
+    x = words(1 << 28, 1)
+    profile("K1 sort_padded 2^28", lambda: bitonic.sort_padded(
+        x, 1 << 28, bitonic.BLOCK_LOG2), card)
+    profile("sort(cuda int32 2^28)", lambda: mt.sort(x, return_result=True), card)
+    del x
+    hi, lo = words(1 << 27, 2), words(1 << 27, 3)
+    profile("pair engine 2^27", lambda: kernels.sort_two_words_bitonic(hi, lo), card)
+    x64 = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
+    del hi, lo
+    profile("sort(cuda int64 2^27)", lambda: mt.sort(x64, return_result=True), card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
