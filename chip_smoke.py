@@ -6,23 +6,42 @@
 Phases, each failing loudly (any exception exits non-zero):
 
 1. build   — compile every ``mpitest_tpu_torch/csrc/*.cu`` with nvcc (all
-             started together) into ``build/kernels/``; print the build
-             time and the card's name and power limit.
+             started together) into ``build/kernels/``, and the host text
+             parser (``native/encode.c``) into ``build/native/``; print the
+             build time and the card's name and power limit.
 2. kernels — each CUDA kernel against its plain PyTorch version on the
              card: K1 (bitonic_u32) at 2^20 and 2^24 over adversarial
              patterns, K2 (bitonic_pairs_u32) at 2^20, K3
-             (fix_runs_pairs) + boundary strips at 2^20 with planted runs.
+             (fix_runs_pairs) + boundary strips at 2^20 with planted runs,
+             K4 (radix_pass) at 2^20: one, two and four planes, full and
+             compacted plans, the payload shape ``(digit,) + 2 words``
+             with diffs (255, 0, 0), n = 2^20 - 3001, and the all-equal,
+             sorted, reversed and 0xFFFFFFFF patterns.
              Tolerance: exact (integer words; every byte must match).
-3. main    — ``mpitest_tpu_torch.sort()`` at full size with verification
-             on: int32 2^28 from the host and resident on the card, int64
-             2^27, the constant-word and hi-duplication int64 routes at
-             2^26, float32 2^24 with NaN/±0/±inf, and a non-power-of-two
-             int32 that pads to 2^26.  Every output equals its oracle (np.sort, or torch.sort
-             on the card for the 2^28/2^27 rows); the ``local_engine``
-             counter and the kernel launch counts are asserted.
+3. main    — three paths, each with the launch counts set to 0 just
+             before it and read just after:
+             (a) ``mpitest_tpu_torch.sort()`` at full size with
+             verification on: int32 2^28 from the host and resident on
+             the card, int64 2^27, the constant-word and hi-duplication
+             int64 routes at 2^26, float32 2^24 with NaN/±0/±inf, and a
+             non-power-of-two int32 that pads to 2^26 (K1-K3);
+             (b) ``sort()`` under ``SORT_LOCAL_ENGINE=radix_pallas`` at
+             2^20 (K4): compacted and full plans, the 64-bit constant-word
+             route on host and device input, the general 64-bit route at
+             5000 keys and the lax route past the envelope;
+             (c) the key-file CLI in process (``mpitest_tpu_torch.cli``):
+             a 2^28 int32 SORTBIN1 file and a 2^22 int32 text file under
+             ``auto`` (K1), a 2^20 text file under ``radix_pallas`` (K4).
+             Every output equals its oracle (np.sort, or torch.sort on the
+             card for the 2^28/2^27 rows; the CLI's probe equals the
+             (n/2)-th element of np.sort); the ``local_engine`` counter,
+             the kernel launch counts and K4's pass counts are asserted.
 4. timing  — CUDA events, warm median: each kernel at the main path's
-             shape beside its plain version, its bound and torch.sort;
-             end-to-end sort() of the device-resident inputs.
+             shape beside its plain version, its bound and torch.sort (K4
+             at 2^28 one word with K4 byte-equal to plain there, 2^27 two
+             words and 2^20); end-to-end sort() of the device-resident
+             inputs; the CLI's own timing line and wall time on the 2^28
+             SORTBIN1 file.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -31,10 +50,15 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s, and the
@@ -44,12 +68,22 @@ OPS_PER_S_32BIT = 67e12
 REPS = 5          # warm repetitions for kernel / library / end-to-end times
 PLAIN_REPS = 3    # the plain versions take seconds per call at full size
 
-SOURCE = "mpitest_tpu_torch/csrc/bitonic.cu"
+SOURCES = {
+    "bitonic_u32": "mpitest_tpu_torch/csrc/bitonic.cu",
+    "bitonic_pairs_u32": "mpitest_tpu_torch/csrc/bitonic.cu",
+    "fix_runs_pairs": "mpitest_tpu_torch/csrc/bitonic.cu",
+    "radix_pass": "mpitest_tpu_torch/csrc/radix.cu",
+}
 REPLACES = {
     "bitonic_u32": "mpitest_tpu/ops/bitonic.py:308,371,514,571",
     "bitonic_pairs_u32": "mpitest_tpu/ops/bitonic.py:703,758,970,1038",
     "fix_runs_pairs": "mpitest_tpu/ops/bitonic.py:1101",
+    "radix_pass": "mpitest_tpu/ops/radix_pallas.py:186",
 }
+#: 32-bit operations per element per K4 pass: two digit extractions
+#: (shift, mask) for the histogram and the scatter, one histogram add and
+#: one rank add.
+K4_OPS_PER_ELEM_PASS = 6
 
 
 def log(msg: str) -> None:
@@ -73,8 +107,12 @@ def main() -> int:
     import numpy as np
 
     import mpitest_tpu_torch as mt
-    from mpitest_tpu_torch.ops import _build, bitonic, kernels
-    from mpitest_tpu_torch.ops.keys import to_device_words, unsigned_order
+    from mpitest_tpu_torch import cli
+    from mpitest_tpu_torch.models import api
+    from mpitest_tpu_torch.ops import _build, bitonic, kernels, radix
+    from mpitest_tpu_torch.ops.keys import codec_for, to_device_words, unsigned_order
+    from mpitest_tpu_torch.utils import io as kio
+    from mpitest_tpu_torch.utils import native_encode
     from mpitest_tpu_torch.utils.trace import Tracer
 
     dev = torch.device("cuda")
@@ -114,6 +152,11 @@ def main() -> int:
     _build.build(*names)
     log(f"[build] {names} built in {time.perf_counter() - t0:.2f} s "
         f"into {_build.BUILD_DIR}")
+    t0 = time.perf_counter()
+    native_ok = native_encode.build()
+    log(f"[build] host text parser {native_encode.LIB_PATH}: "
+        f"{'built' if native_ok else 'not built: ' + str(native_encode.unavailable_reason())}"
+        f" in {time.perf_counter() - t0:.2f} s")
     log(f"[card] {card}")
 
     # ---------------------------------------------------- 2. kernels vs plain
@@ -184,17 +227,57 @@ def main() -> int:
                                  "kernel != plain")
         log(f"[kernels] K3+boundary 2^20 runs 1..{max_run} bsz 2^{b_log2}: lo "
             f"bytes equal, residual={residual(got)} on both")
+
+    def k4_plain(ws, diffs=None):
+        planes = ws
+        for widx, shift, bits in radix.pass_plan(diffs, len(ws)):
+            planes = radix.radix_pass_plain(planes, widx, shift, bits)
+        return planes
+
+    def k4_check(label: str, ws, diffs=None) -> int:
+        got = radix.fused_radix_sort(ws, diffs=diffs)
+        want = k4_plain(ws, diffs)
+        sync()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"K4 {label}: kernel != plain (max_abs_err {err})")
+        log(f"[kernels] K4 {label}: {len(radix.pass_plan(diffs, len(ws)))} "
+            "passes, bytes equal to plain")
+        return err
+
+    n = 1 << 20
+    for n_planes in (1, 2, 4):
+        ws = tuple(words(n, 40 + i) for i in range(n_planes))
+        k4_check(f"2^20 x{n_planes} full plan", ws)
+        narrow = tuple(w & 0xFFFFF for w in ws)
+        k4_check(f"2^20 x{n_planes} compacted plan (20-bit words)", narrow,
+                 (0xFFFFF,) * n_planes)
+    k4_check("2^20 x2 compacted plan (constant hi word)",
+             (torch.full((n,), 7, dtype=torch.int32, device=dev), words(n, 45) & 0xFFF),
+             (0, 0xFFF))
+    digit = words(n, 46) & 0xFF                  # ~4096 keys per digit
+    k4_check("2^20 payload (digit,)+2 words diffs (255,0,0)",
+             (digit, words(n, 47), words(n, 48)), (255, 0, 0))
+    k4_check("2^20-3001 x2 full plan", (words(n - 3001, 49), words(n - 3001, 50)))
+    x = words(n, 51)
+    srt = unsigned_order(torch.sort(unsigned_order(x)).values)
+    ffs = words(n, 52)
+    ffs[::5] = -1                                # real 0xFFFFFFFF keys
+    for name, pat in (("all-equal", torch.full_like(x, 12345)), ("sorted", srt),
+                      ("reversed", srt.flip(0).contiguous()), ("0xFFFFFFFF keys", ffs)):
+        k4_check(f"2^20 {name}", (pat,))
     for name, count in bitonic.LAUNCHES.items():
         if count <= before[name]:
             raise AssertionError(f"kernel {name} never launched in phase 2")
 
-    # ------------------------------------------------------ 3. main path
-    bitonic.reset_launches()
+    # ----------------------------------------------------- 3. main paths
+    K1, K2, K3, K4 = "bitonic_u32", "bitonic_pairs_u32", "fix_runs_pairs", "radix_pass"
     per_case = {}
 
     def run_case(label: str, x, engine: str, oracle, kernels_run: tuple[str, ...],
-                 **counters) -> None:
+                 k4_passes: int = 0, **counters) -> None:
         base = dict(bitonic.LAUNCHES)
+        base_passes = radix.pass_launches()
         tr = Tracer()
         t = time.perf_counter()
         got = mt.sort(x, tracer=tr)
@@ -213,11 +296,38 @@ def main() -> int:
             raise AssertionError(f"{label}: result not verified")
         per_case[label] = {k2: bitonic.LAUNCHES[k2] - base[k2] for k2 in base}
         expect = {k2: int(k2 in kernels_run) for k2 in base}
-        if per_case[label] != expect:
-            raise AssertionError(f"{label}: launches {per_case[label]} != {expect}")
+        expect[K4] = k4_passes
+        passes = radix.pass_launches() - base_passes
+        if per_case[label] != expect or passes != k4_passes:
+            raise AssertionError(f"{label}: launches {per_case[label]}, K4 passes "
+                                 f"{passes} != {expect}")
         log(f"[main] {label}: equal to oracle, engine={engine}, "
-            f"launches={per_case[label]}, {secs:.3f} s host wall incl. "
-            "encode/verify/decode")
+            f"launches={per_case[label]}, K4 passes={passes}, {secs:.3f} s "
+            "host wall incl. encode/verify/decode")
+
+    def run_path(label: str, path_kernels: tuple[str, ...], drive) -> dict[str, int]:
+        """Counts set to 0 just before the path and read just after; every
+        kernel of the path must have launched."""
+        bitonic.reset_launches()
+        drive()
+        counts = dict(bitonic.LAUNCHES)
+        for name in path_kernels:
+            if counts[name] == 0:
+                raise AssertionError(f"kernel {name} was never launched on {label}")
+        log(f"[main] launches over {label}: {counts}")
+        return counts
+
+    @contextlib.contextmanager
+    def local_engine(value: str):
+        old = os.environ.get("SORT_LOCAL_ENGINE")
+        os.environ["SORT_LOCAL_ENGINE"] = value
+        try:
+            yield
+        finally:
+            if old is None:
+                os.environ.pop("SORT_LOCAL_ENGINE", None)
+            else:
+                os.environ["SORT_LOCAL_ENGINE"] = old
 
     def card_sort_oracle(host: np.ndarray):
         def f():
@@ -225,46 +335,129 @@ def main() -> int:
             return torch.sort(t).values.cpu().numpy()
         return f
 
-    K1, K2, K3 = "bitonic_u32", "bitonic_pairs_u32", "fix_runs_pairs"
+    def float_oracle(xf: np.ndarray):
+        def f():
+            u = xf.view(np.uint32)  # IEEE totalOrder by bit pattern
+            key = np.where(u >> 31 == 1, ~u, u | np.uint32(0x80000000))
+            return xf[np.argsort(key, kind="stable")]
+        return f
+
+    def float_keys(n: int) -> np.ndarray:
+        xf = rng.standard_normal(n).astype(np.float32)
+        xf[:8] = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45]
+        return xf
+
     rng = np.random.default_rng(2026)
-    x28 = rng.integers(-(2**31), 2**31, 1 << 28, dtype=np.int64).astype(np.int32)
-    run_case("sort(np int32 2^28)", x28, "bitonic", card_sort_oracle(x28), (K1,))
-    del x28
-    xd = words(1 << 28, 28)
-    run_case("sort(cuda int32 2^28)", xd, "bitonic",
-             lambda: torch.sort(xd).values.cpu().numpy(), (K1,))
-    del xd
-    x64 = rng.integers(-(2**63), 2**63 - 1, 1 << 27, dtype=np.int64)
-    run_case("sort(np int64 2^27)", x64, "bitonic_pair", card_sort_oracle(x64),
-             (K2, K3))
-    del x64
-    xw = rng.integers(5 << 32, 6 << 32, 1 << 26, dtype=np.int64)  # hi constant
-    run_case("sort(np int64 2^26, one 32-bit window)", xw, "bitonic_1w1",
-             lambda: np.sort(xw), (K1,))
-    hi = rng.integers(0, 8, 1 << 26).astype(np.int64)
-    xh = (hi << 33) | rng.integers(0, 2**32, 1 << 26).astype(np.int64)
-    run_case("sort(np int64 2^26, hi duplication)", xh, "lax",
-             lambda: np.sort(xh), (), pair_dup_reroute=1)
-    del xw, xh, hi
-    xf = rng.standard_normal(1 << 24).astype(np.float32)
-    xf[:8] = [np.nan, -np.nan, 0.0, -0.0, np.inf, -np.inf, 1e-45, -1e-45]
 
-    def float_oracle():
-        u = xf.view(np.uint32)  # IEEE totalOrder by bit pattern
-        key = np.where(u >> 31 == 1, ~u, u | np.uint32(0x80000000))
-        return xf[np.argsort(key, kind="stable")]
+    def main_path() -> None:
+        x28 = rng.integers(-(2**31), 2**31, 1 << 28, dtype=np.int64).astype(np.int32)
+        run_case("sort(np int32 2^28)", x28, "bitonic", card_sort_oracle(x28), (K1,))
+        del x28
+        xd = words(1 << 28, 28)
+        run_case("sort(cuda int32 2^28)", xd, "bitonic",
+                 lambda: torch.sort(xd).values.cpu().numpy(), (K1,))
+        del xd
+        x64 = rng.integers(-(2**63), 2**63 - 1, 1 << 27, dtype=np.int64)
+        run_case("sort(np int64 2^27)", x64, "bitonic_pair", card_sort_oracle(x64),
+                 (K2, K3))
+        del x64
+        xw = rng.integers(5 << 32, 6 << 32, 1 << 26, dtype=np.int64)  # hi constant
+        run_case("sort(np int64 2^26, one 32-bit window)", xw, "bitonic_1w1",
+                 lambda: np.sort(xw), (K1,))
+        hi = rng.integers(0, 8, 1 << 26).astype(np.int64)
+        xh = (hi << 33) | rng.integers(0, 2**32, 1 << 26).astype(np.int64)
+        run_case("sort(np int64 2^26, hi duplication)", xh, "lax",
+                 lambda: np.sort(xh), (), pair_dup_reroute=1)
+        del xw, xh, hi
+        xf = float_keys(1 << 24)
+        run_case("sort(np float32 2^24, NaN/±0/±inf)", xf, "bitonic",
+                 float_oracle(xf), (K1,))
+        # pads to 2^26 (past the break-even: n*10 >= n_pow2*6), so K1 runs
+        xo = rng.integers(-(2**31), 2**31, (1 << 26) - 12345, dtype=np.int64).astype(np.int32)
+        run_case("sort(np int32 2^26-12345)", xo, "bitonic", lambda: np.sort(xo), (K1,))
 
-    run_case("sort(np float32 2^24, NaN/±0/±inf)", xf, "bitonic", float_oracle,
-             (K1,))
-    # pads to 2^26 (past the break-even: n*10 >= n_pow2*6), so K1 runs
-    xo = rng.integers(-(2**31), 2**31, (1 << 26) - 12345, dtype=np.int64).astype(np.int32)
-    run_case("sort(np int32 2^26-12345)", xo, "bitonic", lambda: np.sort(xo), (K1,))
-    del xf, xo
-    main_launches = dict(bitonic.LAUNCHES)
-    for name, count in main_launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was never launched on the main path")
-    log(f"[main] launches over the main path: {main_launches}")
+    def radix_path() -> None:
+        n = 1 << 20
+        with local_engine("radix_pallas"):
+            xa = rng.integers(0, 2**20, n).astype(np.int32)
+            run_case("radix_pallas sort(np int32 2^20 in [0, 2^20))", xa,
+                     "radix_pallas", lambda: np.sort(xa), (), k4_passes=3)
+            xc = words(n, 60)
+            run_case("radix_pallas sort(cuda int32 2^20)", xc, "radix_pallas",
+                     lambda: torch.sort(xc).values.cpu().numpy(), (), k4_passes=4)
+            xf = float_keys(n)
+            run_case("radix_pallas sort(np float32 2^20, NaN/±0/±inf)", xf,
+                     "radix_pallas", float_oracle(xf), (), k4_passes=4)
+            xw = rng.integers(5 << 32, 6 << 32, n, dtype=np.int64)
+            run_case("radix_pallas sort(np int64 2^20, one 32-bit window)", xw,
+                     "bitonic_1w1", lambda: np.sort(xw), (), k4_passes=4)
+            run_case("radix_pallas sort(cuda int64 2^20, one 32-bit window)",
+                     torch.from_numpy(xw).to(dev), "bitonic_1w1",
+                     lambda: np.sort(xw), (K1,), k4_passes=0)
+            x5 = rng.integers(-(2**40), 2**40, 5000, dtype=np.int64)
+            diffs = tuple((1 << d.bit_length()) - 1
+                          for d in api._word_diffs(codec_for(np.int64).encode(x5)))
+            run_case("radix_pallas sort(np int64 5000)", x5, "radix_pallas",
+                     lambda: np.sort(x5), (),
+                     k4_passes=len(radix.pass_plan(diffs, 2)))
+            xl = rng.integers(-(2**31), 2**31, n + 1, dtype=np.int64).astype(np.int32)
+            run_case("radix_pallas sort(np int32 2^20+1)", xl, "lax",
+                     lambda: np.sort(xl), (), k4_passes=0)
+
+    cli_times = {}
+
+    def run_cli(label: str, path: str, engine: str, x: np.ndarray,
+                local: str) -> None:
+        out, err = io.StringIO(), io.StringIO()
+        tr = Tracer()
+        t = time.perf_counter()
+        with local_engine(engine), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            rc = cli.main(["mpitest_tpu_torch.cli", path], tracer=tr)
+        wall = time.perf_counter() - t
+        if rc != 0:
+            raise AssertionError(f"CLI {label}: exit {rc}: {err.getvalue()}")
+        n = x.size
+        k = n // 2 - 1
+        probe = int(np.partition(x, k)[k])      # np.sort(x)[n//2-1]
+        want = [f"Each bucket will be put {n} items.",
+                f"The n/2-th sorted element: {probe}"]
+        if out.getvalue().splitlines() != want:
+            raise AssertionError(f"CLI {label}: stdout {out.getvalue()!r} != {want}")
+        m = re.fullmatch(r"Endtime\(\)-Starttime\(\) = (\d+\.\d{5}) sec\n",
+                         err.getvalue())
+        if m is None:
+            raise AssertionError(f"CLI {label}: stderr {err.getvalue()!r}")
+        if tr.counters.get("local_engine") != local:
+            raise AssertionError(f"CLI {label}: local_engine="
+                                 f"{tr.counters.get('local_engine')} != {local}")
+        cli_times[label] = (float(m.group(1)), wall)
+        log(f"[main] CLI {label} ({engine}): exit 0, stdout equal to the reference "
+            f"lines with probe np.sort(x)[n//2-1] = {probe}, "
+            f"local_engine={tr.counters.get('local_engine')}, "
+            f"encode_engine={tr.counters.get('encode_engine')}")
+
+    def cli_path() -> None:
+        with tempfile.TemporaryDirectory() as tmp:
+            x = rng.integers(-(2**31), 2**31 - 1, 1 << 28, dtype=np.int32,
+                             endpoint=True)
+            f = os.path.join(tmp, "keys28.bin")
+            kio.write_keys_binary(f, x)
+            run_cli("2^28 int32 SORTBIN1", f, "auto", x, "bitonic")
+            os.unlink(f)
+            for log2n, engine, local in ((22, "auto", "bitonic"),
+                                         (20, "radix_pallas", "radix_pallas")):
+                x = rng.integers(-(2**31), 2**31 - 1, 1 << log2n, dtype=np.int32,
+                                 endpoint=True)
+                f = os.path.join(tmp, f"keys{log2n}.txt")
+                kio.write_keys_text(f, x)
+                run_cli(f"2^{log2n} int32 text", f, engine, x, local)
+
+    main_launches = run_path("the main path (sort(), auto)", (K1, K2, K3), main_path)
+    radix_launches = run_path("sort() under radix_pallas", (K4,), radix_path)
+    run_path("the key-file CLI", (K1, K4), cli_path)
+    path_launches = {K1: main_launches[K1], K2: main_launches[K2],
+                     K3: main_launches[K3], K4: radix_launches[K4]}
 
     # ---------------------------------------------------------- 4. timing
     entries = []
@@ -278,8 +471,8 @@ def main() -> int:
               ops: float, library_ms: float | None, shape: str) -> None:
         b_ms, b_by = bound(nbytes, ops)
         entries.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": main_launches[name],
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": path_launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
         log(f"[timing] {name} {shape}: {ms:.3f} ms kernel, {plain_ms:.1f} ms "
@@ -345,6 +538,41 @@ def main() -> int:
     log(f"[timing] pair engine K2+K3+strips 2^27: {pair_ms:.3f} ms; "
         f"torch.sort int64 2^27: {sort64_ms:.3f} ms | card {card}")
     del hi, lo, key64
+
+    # K4: the whole fused_radix_sort call.  bound_ms is the function's
+    # floor (each plane read once and written once, 2*W*4*n bytes); the
+    # design floor of an LSD pass (W planes read for the histogram and the
+    # scatter, W written: 3*W*4*n bytes a pass) is logged beside it.
+    def k4_time(label: str, ws, lib_key, json_entry: bool) -> None:
+        n_planes, nk = len(ws), ws[0].numel()
+        passes = len(radix.pass_plan(None, n_planes))
+        err = k4_check(f"{label} full plan", ws)
+        ms = timed(lambda: radix.fused_radix_sort(ws), REPS)
+        plain = timed(lambda: k4_plain(ws), PLAIN_REPS)
+        lib = timed(lambda: torch.sort(lib_key), REPS)
+        design = passes * 3 * n_planes * 4 * nk / HBM_BYTES_PER_S * 1e3
+        log(f"[timing] K4 {label}: {ms:.3f} ms a call, {passes} passes, "
+            f"{ms / passes:.3f} ms a pass ({3} CUDA launches each), plain "
+            f"{plain:.1f} ms, torch.sort of the same words {lib:.3f} ms, "
+            f"design floor {design:.3f} ms ({passes} x 3 x {n_planes} planes "
+            f"x 4 B x n / 3.35 TB/s) | card {card}")
+        if json_entry:
+            entry("radix_pass", ms, plain, err, 2 * n_planes * 4 * nk,
+                  K4_OPS_PER_ELEM_PASS * nk * passes, lib, label)
+
+    x = words(1 << 28, 283)
+    k4_time("2^28 one word", (x,), x, True)
+    del x
+    hi, lo = words(1 << 27, 275), words(1 << 27, 276)
+    k4_time("2^27 two words", (hi, lo), (hi.to(torch.int64) << 32) | u64(lo), False)
+    del hi, lo
+    x = words(1 << 20, 284)
+    k4_time("2^20 one word", (x,), x, False)
+    del x
+    ends, wall = cli_times["2^28 int32 SORTBIN1"]
+    log(f"[timing] CLI 2^28 int32 SORTBIN1 (auto, K1): Endtime()-Starttime() = "
+        f"{ends:.5f} s, wall {wall:.3f} s incl. mmap open and the stdout lines "
+        f"| card {card}")
 
     for label, x in (("int32 2^28", words(1 << 28, 282)),
                      ("int64 2^27", (words(1 << 27, 273).to(torch.int64) << 32)

@@ -1,0 +1,203 @@
+"""The key-file CLI on one card — the reference's own program contract
+(port of the in-memory leg of ``drivers/sort_cli.py``).
+
+    python -m mpitest_tpu_torch.cli <file> [debug]
+
+* argv: a data file and an optional debug level (``atoi`` semantics: a
+  non-numeric level is 0); another argument count prints ``Usage: <prog>
+  <file: Data file to read>`` to stderr and exits 1, and an unreadable,
+  malformed or empty file prints ``sort(): '<file>' is not a valid file
+  for read.`` and exits 1.
+* stdout: ``Each bucket will be put N items.`` (``SORT_ALGO=sample``, the
+  default), the ``[COMMON]``/``[MASTER]`` protocol lines at debug >= 2,
+  at debug > 2 the per-pass ``DUMP`` lines (radix, integer keys) and the
+  full ``i|v`` dump, then ``The n/2-th sorted element: X``.
+* stderr: ``Endtime()-Starttime() = T sec``, timed from after the file
+  read to the materialized result.
+* exit 3 on :class:`SortIntegrityError`, 4 on :class:`SortRetryExhausted`,
+  each with one ``[ERROR]`` line; a bad knob value is one ``[ERROR]`` line
+  and exit 1.
+
+The file is read by ``utils/io.py`` (SORTBIN1 as an mmap, text through the
+``SORT_NATIVE_ENCODE`` parser; the engine that ran is the tracer's
+``encode_engine`` counter) and sorted by the same ``sort()`` the library
+exposes, so ``SORT_LOCAL_ENGINE`` picks its kernels.  It runs on the card
+unless :func:`main` is given ``device="cpu"``.  What the port cannot take
+yet ends with one ``[ERROR]`` line and exit 1, never a silent in-memory
+sort: ``SORT_RANKS`` > 1, a file above ``SORT_MEM_BUDGET`` (the external
+sort), ``SORT_FAULTS``/``SORT_METRICS``/``SORT_TRACE``/``SORT_PROFILE``,
+and ``--explain``.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+import sys
+import time
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from mpitest_tpu_torch.models import api
+from mpitest_tpu_torch.models.supervisor import SortIntegrityError, SortRetryExhausted
+from mpitest_tpu_torch.ops import radix
+from mpitest_tpu_torch.ops.keys import codec_for, to_device_words, to_host_words
+from mpitest_tpu_torch.utils import io as kio
+from mpitest_tpu_torch.utils import knobs, native_encode
+from mpitest_tpu_torch.utils.knobs import NotPortedError
+from mpitest_tpu_torch.utils.trace import Tracer
+
+EXIT_INTEGRITY = 3
+EXIT_RETRIES = 4
+
+#: Knobs of reference subsystems the port does not carry yet.
+_UNPORTED_KNOBS = ("SORT_FAULTS", "SORT_METRICS", "SORT_TRACE", "SORT_PROFILE")
+
+#: Knobs read later in the run, validated up front so garbage fails here.
+_VALIDATED = ("SORT_INGEST_CHUNK", "SORT_INGEST_THREADS", "SORT_NATIVE_ENCODE",
+              "SORT_VERIFY", "SORT_LOCAL_ENGINE", "SORT_MEM_BUDGET")
+
+
+def _error(msg: str) -> None:
+    print(f"[ERROR] {msg}", file=sys.stderr)
+
+
+def _invalid_file(path: str) -> int:
+    print(f"sort(): '{path}' is not a valid file for read.", file=sys.stderr)
+    return 1
+
+
+def _refuse_unported(ranks: int | None) -> None:
+    if ranks not in (None, 1):
+        raise NotPortedError(f"SORT_RANKS='{ranks}': the port sorts on one "
+                             "card; the multi-rank paths are not ported yet")
+    for name in _UNPORTED_KNOBS:
+        if knobs.get(name):
+            raise NotPortedError(f"{name}={knobs.get(name)!r}: not ported yet; "
+                                 "unset it")
+
+
+def _passes_from_diffs(diffs: tuple[int, ...], digit_bits: int) -> int:
+    """LSD passes needed for per-word ``max ^ min`` diffs (msw first);
+    digit alignment restarts at every word."""
+    per_word = (32 + digit_bits - 1) // digit_bits
+    for wi, x in enumerate(diffs):
+        if x:
+            below = len(diffs) - 1 - wi
+            return min(below * per_word + math.ceil(x.bit_length() / digit_bits),
+                       per_word * len(diffs))
+    return 0
+
+
+def radix_pass_states(keys: np.ndarray, digit_bits: int | None
+                      ) -> Iterator[tuple[int, np.ndarray]]:
+    """The keys after each LSD pass of a one-rank radix sort: pass k sorts
+    stably by the digit (word, k-th shift) of the reference's plan, with
+    ``digit_bits`` (auto: 16 when that needs fewer passes than 8).  Debug
+    output only; runs the plain pass on the host."""
+    codec = codec_for(keys.dtype)
+    words_np = codec.encode(np.asarray(keys).reshape(-1))
+    diffs = api._word_diffs(words_np)
+    if digit_bits is None:
+        digit_bits = 16 if _passes_from_diffs(diffs, 16) < _passes_from_diffs(diffs, 8) else 8
+    per_word = (32 + digit_bits - 1) // digit_bits
+    plan = [(w, p * digit_bits) for w in range(codec.n_words - 1, -1, -1)
+            for p in range(per_word)][:_passes_from_diffs(diffs, digit_bits)]
+    planes = tuple(to_device_words(w, "cpu") for w in words_np)
+    for k, (widx, shift) in enumerate(plan, 1):
+        planes = radix.radix_pass_plain(planes, widx, shift, digit_bits)
+        yield k, codec.decode(tuple(to_host_words(p) for p in planes))
+
+
+def main(argv: list[str] | None = None, device: torch.device | str | None = None,
+         tracer: Tracer | None = None) -> int:
+    argv = sys.argv if argv is None else argv
+    if "--explain" in argv:
+        _error("--explain: plan provenance is not ported yet; run without it")
+        return 1
+    if len(argv) not in (2, 3):
+        print(f"Usage: {argv[0]} <file: Data file to read>", file=sys.stderr)
+        return 1
+    path = argv[1]
+    debug = 0
+    if len(argv) == 3:
+        m = re.match(r"\s*[+-]?\d+", argv[2])
+        debug = int(m.group()) if m else 0
+    tracer = tracer or Tracer()
+    tracer.level = debug
+
+    try:
+        algo = knobs.get("SORT_ALGO")
+        dtype = knobs.get("SORT_DTYPE")
+        digit_bits = knobs.get("SORT_DIGIT_BITS")
+        ranks = knobs.get("SORT_RANKS")
+        for name in _VALIDATED:
+            knobs.get(name)
+        _refuse_unported(ranks)
+        tracer.counters["encode_engine"] = native_encode.engine()
+        dev = api.resolve_device(None, device)
+    except (ValueError, RuntimeError) as e:
+        _error(str(e))
+        return 1
+    mem_budget = knobs.get("SORT_MEM_BUDGET")
+    try:
+        file_bytes = Path(path).stat().st_size
+    except OSError:
+        return _invalid_file(path)
+    if mem_budget and file_bytes > mem_budget and debug <= 0:
+        _error(f"SORT_MEM_BUDGET='{mem_budget}': '{path}' holds {file_bytes} "
+               "bytes, above the budget, and the external sort is not ported "
+               "yet; unset it or raise it")
+        return 1
+
+    try:
+        keys = kio.read_keys_auto(path, dtype=dtype, mmap=True)
+    except (OSError, ValueError, OverflowError):
+        return _invalid_file(path)
+    n = keys.size
+    if n == 0:
+        return _invalid_file(path)
+
+    n_ranks = 1
+    tracer.common(f"Working 0/{n_ranks}", min_level=2)
+    tracer.master(f"Read file: {path}")
+    tracer.master(f"File read OK, {n} numbers {keys[0]}-{keys[-1]}.")
+    if algo == "sample":
+        print(f"Each bucket will be put {-(-n // n_ranks)} items.")
+
+    start = time.perf_counter()  # after the file read
+    try:
+        res = api.sort(keys, algorithm=algo, device=dev, tracer=tracer,
+                       return_result=True)
+        out = res.to_numpy()
+    except SortIntegrityError as e:
+        _error(f"sort integrity failure: {e}")
+        return EXIT_INTEGRITY
+    except SortRetryExhausted as e:
+        _error(f"sort failed after retries: {e}")
+        return EXIT_RETRIES
+    end = time.perf_counter()
+
+    if debug > 2:
+        mask = (1 << (8 * dtype.itemsize)) - 1
+        if algo == "radix" and dtype.kind in "iu":
+            for k, state in radix_pass_states(keys, digit_bits):
+                print(f"[COMMON] 0: Main Queue Completed, LEN={n}")
+                for v in state:
+                    print(f"DUMP: LOOP {k} RADIX 0 = {int(v) & mask}")
+        for i, v in enumerate(out):
+            print(f"{i}|{v}" if dtype.kind == "f" else f"{i}|{int(v) & mask}")
+    med = out[max(n // 2 - 1, 0)]
+    if dtype.kind == "f":
+        print(f"The n/2-th sorted element: {med}")
+    else:
+        print(f"The n/2-th sorted element: {int(med)}")
+    print(f"Endtime()-Starttime() = {end - start:.5f} sec", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -18,6 +18,12 @@ bitonic engine for n >= 2^13; the break-even rule (``n*10 < n_pow2*6``)
 and the 64-bit constant-word shortcut, hi-duplication sniff and residual
 fallback keep their counters (``local_engine``, ``pair_dup_reroute``,
 ``pair_residual_fallback``) and names (:data:`_PAIR_CODES`).
+``radix_pallas`` sends keys of <= 2^20 elements and <= 4 words to the
+fused radix kernel (K4) and larger ones to ``lax``; host input compacts
+its pass plan from the words' ranges, device input runs the full plan,
+and 64-bit keys with n >= 2^13 keep the pair route (whose device form
+sorts a lone varying word with the bitonic engine, its host form with
+K4).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from mpitest_tpu_torch.models.supervisor import (  # re-exported: public errors
     SortIntegrityError,
     SortRetryExhausted,
 )
-from mpitest_tpu_torch.ops import bitonic, kernels
+from mpitest_tpu_torch.ops import bitonic, kernels, radix
 from mpitest_tpu_torch.ops.keys import (
     KeyCodec,
     codec_for,
@@ -109,8 +115,16 @@ _PAIR_CODES = {0: "constant", 1: "bitonic_1w1", 2: "bitonic_1w0",
 
 
 def _local_engine() -> str:
-    """``SORT_LOCAL_ENGINE={auto,bitonic,lax}``."""
+    """``SORT_LOCAL_ENGINE={auto,bitonic,lax,radix_pallas}``."""
     return supervision.local_engine_knob()
+
+
+def _word_diffs(words: tuple[np.ndarray, ...]) -> tuple[int, ...]:
+    """Per-word ``max ^ min`` of host key words (msw first) — the input
+    of pass planning; empty input has no differing bits."""
+    if words[0].size == 0:
+        return (0,) * len(words)
+    return tuple(int(w.max()) ^ int(w.min()) for w in words)
 
 
 def _use_bitonic(engine: str, n_words: int, n: int) -> bool:
@@ -121,8 +135,19 @@ def _use_bitonic(engine: str, n_words: int, n: int) -> bool:
     return engine == "auto" and n >= (1 << bitonic.MIN_SORT_LOG2)
 
 
+def _use_fused(engine: str, n_words: int, n: int) -> bool:
+    """The fused radix engine takes this dispatch: the knob asked for it
+    and the key fits the reference's envelope (the CUDA pass has none of
+    its own; the envelope keeps the engine users get the same)."""
+    return (engine == "radix_pallas" and n_words <= radix.FUSED_MAX_WORDS
+            and n <= radix.FUSED_MAX_ELEMS)
+
+
 def _resolve_local_engine(engine: str, n_words: int, n: int) -> str:
-    """Concrete engine for one dispatch: ``bitonic`` or ``lax``."""
+    """Concrete engine for one dispatch: ``radix_pallas``, ``bitonic`` or
+    ``lax``."""
+    if engine == "radix_pallas":
+        return "radix_pallas" if _use_fused(engine, n_words, n) else "lax"
     return "bitonic" if _use_bitonic(engine, n_words, n) else "lax"
 
 
@@ -141,10 +166,13 @@ def _local_pair_sort(x: Any, is_device: bool, codec: KeyCodec,
        sort — correctness never depends on the sniff.
 
     Device-resident input takes the reference device program's sniff
-    sample and reports the fused fallback as ``bitonic_pair+lax_fallback``;
-    host input takes the host sniff.  Returns the sorted device words."""
+    sample, sorts a lone varying word with the bitonic engine whatever the
+    knob (the reference's fused device program does), and reports the
+    fused fallback as ``bitonic_pair+lax_fallback``; host input takes the
+    host sniff and the knob's one-word engine (under ``radix_pallas`` the
+    full-plan K4 inside its envelope).  Returns the sorted device words."""
     n = x.numel() if is_device else np.asarray(x).size
-    one_w = _resolve_local_engine(_local_engine(), 1, n)
+    one_w = "bitonic" if is_device else _resolve_local_engine(_local_engine(), 1, n)
     if is_device:
         with tracer.phase("encode"):
             words = codec.encode_torch(x.reshape(-1))
@@ -300,6 +328,11 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
                 fp_in = vfy.fingerprint_host(words_np)
         with tracer.phase("device_put"):
             words = tuple(to_device_words(w, device) for w in words_np)
+        # fused-engine pass compaction: the host words are in hand, so the
+        # per-word spread quantized to bit widths plans the passes
+        diffs = (tuple((1 << int(d).bit_length()) - 1
+                       for d in _word_diffs(words_np))
+                 if resolved == "radix_pallas" else None)
         with tracer.phase("sort"):
-            out = kernels.local_sort(words, engine=resolved)
+            out = kernels.local_sort(words, engine=resolved, diffs=diffs)
     return _finish_local(DistributedSortResult(out, N, dtype), fp_in)

@@ -28,7 +28,10 @@ class SortRetryExhausted(SortFaultError):
 
 
 def local_engine_knob() -> str:
-    """``SORT_LOCAL_ENGINE`` (default auto): the local-sort engine."""
+    """``SORT_LOCAL_ENGINE`` (default auto): the local-sort engine, one of
+    ``auto`` (the bitonic kernels for n >= 2^13), ``bitonic``, ``lax``
+    (``torch.sort``) and ``radix_pallas`` (the fused radix kernel, K4,
+    inside its envelope of 2^20 keys and 4 words)."""
     return knobs.get("SORT_LOCAL_ENGINE")
 
 

@@ -8,6 +8,10 @@ so an edited source rebuilds and an unchanged one loads at once.  A
 failed build raises :class:`KernelBuildError` carrying nvcc's stderr; a
 missing ``nvcc`` raises too.  Nothing here falls back to another
 implementation.
+
+Every wrapper launches through :func:`launch`, which counts each kernel
+entry it calls in :data:`LAUNCHES` (one table for every source, so one
+reset and one read cover a whole run).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
@@ -28,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+
+#: Kernel launches per C entry point since the last :func:`reset_launches`;
+#: each wrapper module registers its entries here.
+LAUNCHES: dict[str, int] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -90,3 +100,40 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(build(name)[name]))
         return _loaded[name]
+
+
+def typed(name: str, signatures: dict[str, tuple[type, ...]]) -> ctypes.CDLL:
+    """:func:`load` with each entry's argument types set once (every
+    entry returns an int status; ``kernel_error_string`` maps it)."""
+    lib = load(name)
+    if not hasattr(lib, "typed"):
+        for entry, argtypes in signatures.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.typed = True
+    return lib
+
+
+def launch(lib: ctypes.CDLL, name: str, device: torch.device, *args: int) -> None:
+    """Call kernel entry ``name`` of ``lib`` on the current stream of
+    ``device``; raise if the launch was refused, else count it."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed: {msg} (code {rc})")
+    LAUNCHES[name] += 1
+
+
+def launches(name: str) -> int:
+    """Launch count of one kernel entry."""
+    return LAUNCHES[name]
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

@@ -43,20 +43,11 @@ MIN_SORT_LOG2 = 13
 #: log2 of the reference pair-engine block (also K3's ``bsz``).
 PAIR_BLOCK_LOG2 = 16
 
-#: Kernel launches per wrapper since the last :func:`reset_launches`.
-LAUNCHES: dict[str, int] = {"bitonic_u32": 0, "bitonic_pairs_u32": 0,
-                            "fix_runs_pairs": 0}
-
-
-def launches(name: str) -> int:
-    """Launch count of one kernel (``bitonic_u32``, ``bitonic_pairs_u32``
-    or ``fix_runs_pairs``)."""
-    return LAUNCHES[name]
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+#: Kernel launches per entry (the package-wide table of ``ops/_build.py``).
+LAUNCHES = _build.LAUNCHES
+LAUNCHES.update({"bitonic_u32": 0, "bitonic_pairs_u32": 0, "fix_runs_pairs": 0})
+launches = _build.launches
+reset_launches = _build.reset_launches
 
 
 # ------------------------------------------------------------ kernel glue
@@ -71,29 +62,13 @@ _SIGNATURES = {
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("bitonic")
-    if not hasattr(lib, "typed"):
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        lib.typed = True
-    return lib
+    return _build.typed("bitonic", _SIGNATURES)
 
 
 def _launch(name: str, device: torch.device, *args: int) -> None:
     """Call kernel entry ``name`` on the current stream of ``device``;
     raise if the launch was refused."""
-    lib = _lib()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        msg = lib.kernel_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: {msg} (code {rc})")
-    LAUNCHES[name] += 1
+    _build.launch(_lib(), name, device, *args)
 
 
 def _on_card(*ts: torch.Tensor, n: int) -> bool:

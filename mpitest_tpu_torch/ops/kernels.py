@@ -5,19 +5,20 @@ Words are ``torch.int32`` tensors of raw uint32 bits (``ops/keys.py``).
 The ``lax`` engine is the reference's ``lax.sort``, which sits outside
 any Pallas kernel: here it is ``torch.sort``, with a two-word key sorted
 as one int64 built from the words.  The ``bitonic`` engine runs the CUDA
-kernels of ``ops/bitonic.py`` (or their plain versions on the CPU).
+kernels of ``ops/bitonic.py`` and the ``radix_pallas`` engine the fused
+radix kernel of ``ops/radix.py`` (or their plain versions on the CPU).
 """
 
 from __future__ import annotations
 
 import torch
 
-from mpitest_tpu_torch.ops import bitonic
+from mpitest_tpu_torch.ops import bitonic, radix
 from mpitest_tpu_torch.ops.keys import SIGN_BIT, unsigned_order
 
 Words = tuple[torch.Tensor, ...]
 
-ENGINES = ("bitonic", "lax")
+ENGINES = ("bitonic", "lax", "radix_pallas")
 
 
 def _lax_sort(words: Words, stable: bool) -> Words:
@@ -36,16 +37,23 @@ def _lax_sort(words: Words, stable: bool) -> Words:
     return (w[:, 1] ^ SIGN_BIT, w[:, 0].contiguous())
 
 
-def local_sort(words: Words, engine: str = "lax") -> Words:
+def local_sort(words: Words, engine: str = "lax",
+               diffs: tuple[int, ...] | None = None) -> Words:
     """Lexicographic sort of one- or two-word keys (msw first).
 
     ``engine="bitonic"`` routes one-word keys through the bitonic network
     (K1) and two-word keys through the pair engine (K2 + K3) with its
-    residual fallback to the ``lax`` form.  ``words`` is always the full
+    residual fallback to the ``lax`` form.  ``engine="radix_pallas"``
+    routes keys of up to ``radix.FUSED_MAX_WORDS`` words through the fused
+    radix kernel (K4), one kernel call per planned pass; ``diffs``
+    (msw-first per-word value spreads, host-static) compacts its pass plan
+    and is ignored by the other engines.  ``words`` is always the full
     key, so stability is unobservable and the unstable network is an
     exact drop-in for the stable sort."""
     if engine not in ENGINES:
         raise ValueError(f"unknown local engine {engine!r}; use one of {ENGINES}")
+    if engine == "radix_pallas":
+        return radix.fused_radix_sort(words, diffs=diffs)
     if engine == "bitonic" and len(words) == 1:
         return (bitonic.bitonic_sort_u32(words[0]),)
     if engine == "bitonic" and len(words) == 2:

@@ -1,8 +1,8 @@
 """Env-knob registry of the port — the one place it reads the environment.
 
 A subset of the reference registry (``mpitest_tpu/utils/knobs.py``): the
-knobs the single-card sort path reads, with the same names, defaults and
-message contract.  A bad value raises :class:`KnobError` (a
+knobs the single-card sort path, the key-file CLI and its readers read,
+with the same names, defaults and message contract.  A bad value raises :class:`KnobError` (a
 ``ValueError``) whose text names the knob and the accepted values.
 """
 
@@ -11,6 +11,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from typing import Any, Callable
+
+import numpy as np
 
 __all__ = ["Knob", "KnobError", "NotPortedError", "get", "register"]
 
@@ -63,26 +65,126 @@ def _flag(name: str) -> Callable[[str], bool]:
     return parse
 
 
-#: Reference engine values whose kernel (K4, ``ops/radix_pallas.py``) is
-#: still to be ported.
-_NOT_PORTED_ENGINES = ("radix_pallas", "radix_pallas_interpret")
-LOCAL_ENGINES = ("auto", "bitonic", "lax")
+LOCAL_ENGINES = ("auto", "bitonic", "lax", "radix_pallas")
 
 
 def _parse_local_engine(raw: str) -> str:
-    if raw in _NOT_PORTED_ENGINES:
-        raise NotPortedError(
-            f"SORT_LOCAL_ENGINE={raw!r}: the fused radix kernel (K4, "
-            "mpitest_tpu/ops/radix_pallas.py) is not yet ported to CUDA; "
-            f"use one of {LOCAL_ENGINES}")
+    if raw == "radix_pallas_interpret":
+        # the Pallas interpreter twin has no counterpart: on a card the
+        # engine is the kernel, on the CPU its plain version
+        raise KnobError(
+            f"SORT_LOCAL_ENGINE={raw!r}: the interpreter twin has no "
+            "counterpart here; use 'radix_pallas' (the kernel on a card, its "
+            f"plain version on the CPU) or one of {LOCAL_ENGINES}")
     if raw not in LOCAL_ENGINES:
         raise KnobError(f"SORT_LOCAL_ENGINE={raw!r}; use one of {LOCAL_ENGINES}")
     return raw
 
 
+def _int(name: str, lo: int) -> Callable[[str], int]:
+    def parse(raw: str) -> int:
+        try:
+            v = int(raw)
+        except ValueError:
+            v = lo - 1
+        if v < lo:
+            raise KnobError(f"{name}={raw!r}: use an integer >= {lo}")
+        return v
+    return parse
+
+
+def _enum(name: str, choices: tuple[str, ...],
+          err: str | None = None) -> Callable[[str], str]:
+    def parse(raw: str) -> str:
+        if raw not in choices:
+            raise KnobError(err.format(name=name, raw=raw) if err else
+                            f"{name}={raw!r}; use one of {choices}")
+        return raw
+    return parse
+
+
+def _parse_dtype(raw: str) -> Any:
+    from mpitest_tpu_torch.ops.keys import codec_for
+    try:
+        # np.dtype raises TypeError/ValueError/SyntaxError depending on the
+        # garbage; codec_for rejects valid-but-unsupported dtypes with the
+        # supported list in the message
+        return codec_for(raw).dtype
+    except Exception as e:
+        raise KnobError(f"SORT_DTYPE={raw!r}: {e}") from None
+
+
+def _parse_positive_or_unset(name: str, msg: str) -> Callable[[str], int | None]:
+    def parse(raw: str) -> int | None:
+        if raw == "":
+            return None
+        try:
+            v = int(raw)
+        except ValueError:
+            v = 0
+        if v < 1:
+            raise KnobError(f"{name}={raw!r}: {msg}")
+        return v
+    return parse
+
+
+def _parse_digit_bits(raw: str) -> int | None:
+    if raw == "auto":
+        return None
+    try:
+        v = int(raw)
+    except ValueError:
+        v = 0
+    if not 1 <= v <= 16:
+        raise KnobError(f"SORT_DIGIT_BITS={raw!r}: use 'auto' or an "
+                        "integer in [1, 16]") from None
+    return v
+
+
+def _passthrough(raw: str) -> str:
+    return raw
+
+
 register("SORT_LOCAL_ENGINE", "auto",
-         "Local sort engine; auto = bitonic CUDA kernels for n >= 2^13.",
+         "Local sort engine; auto = bitonic CUDA kernels for n >= 2^13, "
+         "radix_pallas = the fused radix kernel (K4) for <= 2^20 keys.",
          _parse_local_engine)
 register("SORT_VERIFY", True,
          "Always-on output verification (sortedness + fingerprint).",
          _flag("SORT_VERIFY"))
+
+# The key-file CLI (cli.py) and its readers (utils/io.py).
+register("SORT_ALGO", "sample",
+         "Sort algorithm the CLI dispatches (reference default: sample).",
+         _enum("SORT_ALGO", ("sample", "radix"),
+               err="{name}={raw!r}: use 'sample' or 'radix'"))
+register("SORT_DTYPE", np.dtype(np.int32),
+         "Key dtype for text inputs (int32/uint32/int64/uint64/f32/f64).",
+         _parse_dtype)
+register("SORT_RANKS", None,
+         "Mesh size; the port runs on one card, so only 1 is accepted by the CLI.",
+         _parse_positive_or_unset("SORT_RANKS", "use a positive integer"))
+register("SORT_DIGIT_BITS", None,
+         "Radix digit width of the CLI's debug>2 per-pass dump; auto picks.",
+         _parse_digit_bits)
+register("SORT_NATIVE_ENCODE", "auto",
+         "Native C text parser (utils/native_encode.py): auto | on | off.",
+         _enum("SORT_NATIVE_ENCODE", ("auto", "on", "off")))
+register("SORT_INGEST_CHUNK", None,
+         "Keys per text-parse chunk (default 2^22).",
+         _int("SORT_INGEST_CHUNK", 1))
+register("SORT_INGEST_THREADS", 2,
+         "Text-parse worker threads.",
+         _int("SORT_INGEST_THREADS", 1))
+register("SORT_MEM_BUDGET", 0,
+         "Byte budget of the external sort (not ported: the CLI refuses a "
+         "file above it).",
+         _int("SORT_MEM_BUDGET", 0))
+
+# Reference knobs whose subsystems are not ported: the CLI refuses to run
+# with any of them set rather than silently ignore it.
+for _name, _doc in (("SORT_FAULTS", "Fault-injection plan (not ported)."),
+                    ("SORT_METRICS", "Metrics sidecar path (not ported)."),
+                    ("SORT_TRACE", "Span-log JSONL path (not ported)."),
+                    ("SORT_PROFILE", "Profiler trace directory (not ported).")):
+    register(_name, None, _doc, _passthrough)

@@ -8,7 +8,11 @@ Traces, with ``torch.profiler`` (CUPTI), one warm call each of:
 * the 64-bit pair engine ``kernels.sort_two_words_bitonic`` (K2 + K3 +
   boundary strips + residual check) on 2^27 pairs;
 * end-to-end ``sort()`` of a device-resident int32 2^28 tensor and of an
-  int64 2^27 tensor, verification on, result left on the card.
+  int64 2^27 tensor, verification on, result left on the card;
+* K4 ``radix.fused_radix_sort`` on 2^28 one-word and 2^27 two-word
+  planes (full plan: 4 and 8 passes of histogram, scan and scatter), and
+  ``sort()`` of a device-resident int32 2^20 tensor under
+  ``SORT_LOCAL_ENGINE=radix_pallas``.
 
 For each it prints the host wall time of the window, the device time
 summed over CUDA events, their ratio (the device-busy share; one minus it
@@ -65,8 +69,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device available", file=sys.stderr)
         return 2
+    import os
+
     import mpitest_tpu_torch as mt
-    from mpitest_tpu_torch.ops import bitonic, kernels
+    from mpitest_tpu_torch.ops import bitonic, kernels, radix
 
     card = _card()
     dev = torch.device("cuda")
@@ -86,6 +92,25 @@ def main() -> int:
     x64 = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
     del hi, lo
     profile("sort(cuda int64 2^27)", lambda: mt.sort(x64, return_result=True), card)
+    del x64
+    x = words(1 << 28, 4)
+    profile("K4 fused_radix_sort 2^28 x1", lambda: radix.fused_radix_sort((x,)), card)
+    del x
+    hi, lo = words(1 << 27, 5), words(1 << 27, 6)
+    profile("K4 fused_radix_sort 2^27 x2",
+            lambda: radix.fused_radix_sort((hi, lo)), card)
+    del hi, lo
+    x = words(1 << 20, 7)
+    old = os.environ.get("SORT_LOCAL_ENGINE")
+    os.environ["SORT_LOCAL_ENGINE"] = "radix_pallas"
+    try:
+        profile("sort(cuda int32 2^20), radix_pallas",
+                lambda: mt.sort(x, return_result=True), card)
+    finally:
+        if old is None:
+            os.environ.pop("SORT_LOCAL_ENGINE")
+        else:
+            os.environ["SORT_LOCAL_ENGINE"] = old
     return 0
 
 

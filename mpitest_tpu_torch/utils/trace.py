@@ -1,7 +1,8 @@
 """Debug-log + phase-timing contract (the reference's
 ``mpitest_tpu/utils/trace.py``).
 
-Keeps the reference's ``[VERBOSE]`` log prefix, per-phase wall timers,
+Keeps the reference's log prefixes (``[COMMON]``, ``[MASTER]``,
+``[SLAVE]``, ``[VERBOSE]``) and their debug levels, per-phase wall timers,
 machine-readable ``counters`` and the nested span log.  Phase times are
 host wall time: a phase that launches CUDA work without synchronising
 times the enqueue.
@@ -25,6 +26,21 @@ class Tracer:
     phases: dict[str, float] = field(default_factory=dict)
     counters: dict[str, object] = field(default_factory=dict)
     spans: SpanLog = field(default_factory=SpanLog)
+
+    def common(self, msg: str, min_level: int = 1) -> None:
+        """Any-rank step log."""
+        if self.level >= min_level:
+            print(f"[COMMON] {msg}")
+
+    def master(self, msg: str, min_level: int = 2) -> None:
+        """Root-rank protocol log."""
+        if self.level >= min_level:
+            print(f"[MASTER] {msg}")
+
+    def slave(self, msg: str, min_level: int = 2) -> None:
+        """Non-root protocol log."""
+        if self.level >= min_level:
+            print(f"[SLAVE] {msg}")
 
     def verbose(self, msg: str) -> None:
         if self.level >= 1:

@@ -1,0 +1,270 @@
+"""The port's key-file CLI (``mpitest_tpu_torch/cli.py``, run with
+``device="cpu"``) against the reference's (``drivers/sort_cli.py``, run
+with ``SORT_RANKS=1``), both in process on the same files.
+
+Held equal: the exit code, every stdout line but the ``[VERBOSE]`` phase
+timings, and the stderr shape — the same lines, with the
+``Endtime()-Starttime()`` value aside.  What the port cannot take yet
+ends with one ``[ERROR]`` line and a nonzero exit.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import re
+
+import numpy as np
+import pytest
+
+from mpitest_tpu_torch import cli
+from mpitest_tpu_torch.utils import io as kio
+from mpitest_tpu_torch.utils.trace import Tracer
+
+_spec = importlib.util.spec_from_file_location(
+    "ref_sort_cli", os.path.join(os.path.dirname(__file__), "..", "drivers",
+                                 "sort_cli.py"))
+ref_cli = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(ref_cli)
+
+_TIME = re.compile(r"^Endtime\(\)-Starttime\(\) = \d+\.\d{5} sec$")
+
+
+def _shape(err: str) -> list[str]:
+    return ["Endtime()-Starttime() = T sec" if _TIME.match(line) else line
+            for line in err.splitlines()]
+
+
+def _stdout(out: str) -> list[str]:
+    return [line for line in out.splitlines() if not line.startswith("[VERBOSE]")]
+
+
+def _run_both(args, capsys, monkeypatch, **env):
+    env = {"SORT_NATIVE_ENCODE": "off", "SORT_RANKS": "1", **env}
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rrc = ref_cli.main(["sort_cli"] + args)
+    ref = capsys.readouterr()
+    rc = cli.main(["sort_cli"] + args, device="cpu")
+    got = capsys.readouterr()
+    return (rc, got), (rrc, ref)
+
+
+def _check_same(args, capsys, monkeypatch, **env):
+    (rc, got), (rrc, ref) = _run_both(args, capsys, monkeypatch, **env)
+    assert rc == rrc
+    assert _stdout(got.out) == _stdout(ref.out)
+    assert _shape(got.err) == _shape(ref.err)
+    return rc, got
+
+
+@pytest.fixture
+def int_file(tmp_path):
+    x = np.random.default_rng(1).integers(-(2**31), 2**31 - 1, 1000, dtype=np.int32)
+    p = tmp_path / "keys.txt"
+    kio.write_keys_text(str(p), x)
+    return str(p), x
+
+
+@pytest.mark.parametrize("algo", ["sample", "radix"])
+@pytest.mark.parametrize("debug", [None, "2", "3", "abc"])
+def test_output_matches_reference(algo, debug, int_file, capsys, monkeypatch):
+    path, x = int_file
+    args = [path] + ([debug] if debug is not None else [])
+    rc, got = _check_same(args, capsys, monkeypatch, SORT_ALGO=algo)
+    assert rc == 0
+    assert _stdout(got.out)[-1] == f"The n/2-th sorted element: {np.sort(x)[499]}"
+
+
+@pytest.mark.parametrize("dtype", ["int64", "uint64", "float32", "float64", "int16"])
+def test_dtypes_match_reference(dtype, tmp_path, capsys, monkeypatch):
+    rng = np.random.default_rng(2)
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        x = (rng.standard_normal(1001) * 10.0 ** rng.integers(-20, 20, 1001)).astype(dt)
+        x[:2] = [0.0, -0.0]
+    else:
+        info = np.iinfo(dt)
+        x = rng.integers(info.min, info.max, 1001, dtype=dt, endpoint=True)
+    p = tmp_path / "k.txt"
+    kio.write_keys_text(str(p), x)
+    rc, _ = _check_same([str(p), "3"], capsys, monkeypatch, SORT_DTYPE=dtype,
+                        SORT_ALGO="radix")
+    assert rc == 0
+
+
+@pytest.mark.parametrize("engine", ["auto", "lax", "bitonic", "radix_pallas"])
+def test_engines_and_sortbin1_match_reference(engine, tmp_path, capsys, monkeypatch):
+    x = np.random.default_rng(3).integers(-(2**31), 2**31 - 1, 9000, dtype=np.int32)
+    p = str(tmp_path / "k.bin")
+    kio.write_keys_binary(p, x)
+    rc, _ = _check_same([p], capsys, monkeypatch, SORT_LOCAL_ENGINE=engine)
+    assert rc == 0
+    tr = Tracer()
+    monkeypatch.setenv("SORT_LOCAL_ENGINE", engine)
+    assert cli.main(["sort_cli", p], device="cpu", tracer=tr) == 0
+    capsys.readouterr()
+    want = {"auto": "bitonic"}.get(engine, engine)
+    assert tr.counters["local_engine"] == want
+    assert tr.counters["encode_engine"] == "python"
+
+
+@pytest.mark.parametrize("args", [[], ["a", "b", "c"]])
+def test_usage_matches_reference(args, capsys, monkeypatch):
+    rc, got = _check_same(args, capsys, monkeypatch)
+    assert rc == 1 and got.err == "Usage: sort_cli <file: Data file to read>\n"
+
+
+@pytest.mark.parametrize("content", [None, "", "1 2 zz 4\n", "1 99999999999999999999 3\n"])
+def test_bad_files_match_reference(content, tmp_path, capsys, monkeypatch):
+    p = tmp_path / "k.txt"
+    if content is not None:
+        p.write_text(content)
+    rc, got = _check_same([str(p)], capsys, monkeypatch)
+    assert rc == 1
+    assert got.err == f"sort(): '{p}' is not a valid file for read.\n"
+
+
+def test_bad_sortbin1_dtype_matches_reference(tmp_path, capsys, monkeypatch):
+    p = str(tmp_path / "k.bin")
+    kio.write_keys_binary(p, np.arange(100, dtype=np.int64))
+    rc, _ = _check_same([p], capsys, monkeypatch, SORT_DTYPE="int32")
+    assert rc == 1
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("SORT_DTYPE", "garbage"), ("SORT_DTYPE", "complex64"), ("SORT_ALGO", "quick"),
+    ("SORT_DIGIT_BITS", "0"), ("SORT_RANKS", "zero"), ("SORT_RANKS", "-3"),
+    ("SORT_DIGIT_BITS", "33"), ("SORT_NATIVE_ENCODE", "maybe"),
+    ("SORT_LOCAL_ENGINE", "warp"), ("SORT_VERIFY", "yes"),
+    ("SORT_INGEST_THREADS", "0"), ("SORT_MEM_BUDGET", "-1"),
+])
+def test_knob_garbage_is_one_error_line(knob, value, int_file, capsys, monkeypatch):
+    path, _ = int_file
+    (rc, got), (rrc, ref) = _run_both([path], capsys, monkeypatch, **{knob: value})
+    assert rc == rrc == 1
+    assert got.out == ""
+    lines = got.err.splitlines()
+    assert len(lines) == 1 and lines[0].startswith("[ERROR] ")
+    assert knob in lines[0] and repr(value) in lines[0]
+    if knob not in ("SORT_NATIVE_ENCODE", "SORT_LOCAL_ENGINE"):
+        assert got.err == ref.err   # the reference's own message
+
+
+@pytest.mark.parametrize("env,argv_extra", [
+    ({"SORT_RANKS": "2"}, []),
+    ({"SORT_MEM_BUDGET": "100"}, []),
+    ({"SORT_FAULTS": "result_swap"}, []),
+    ({"SORT_METRICS": "m.jsonl"}, []),
+    ({"SORT_TRACE": "t.jsonl"}, []),
+    ({"SORT_PROFILE": "prof"}, []),
+    ({}, ["--explain"]),
+], ids=["ranks", "mem_budget", "faults", "metrics", "trace", "profile", "explain"])
+def test_unported_inputs_end_with_one_error_line(env, argv_extra, int_file, capsys,
+                                                 monkeypatch):
+    path, _ = int_file
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    rc = cli.main(["sort_cli", path] + argv_extra, device="cpu")
+    got = capsys.readouterr()
+    assert rc != 0 and got.out == ""
+    lines = got.err.splitlines()
+    assert len(lines) == 1 and lines[0].startswith("[ERROR] ")
+    assert "not ported" in lines[0]
+
+
+def test_mem_budget_below_the_file_with_debug_runs_in_memory(int_file, capsys,
+                                                              monkeypatch):
+    """The reference keeps the in-memory path for debug runs; so does the
+    port, and the budget then changes nothing."""
+    path, _ = int_file
+    rc, _ = _check_same([path, "1"], capsys, monkeypatch, SORT_MEM_BUDGET="100")
+    assert rc == 0
+    rc, _ = _check_same([path], capsys, monkeypatch, SORT_MEM_BUDGET="100000000")
+    assert rc == 0
+
+
+def test_integrity_failure_exits_3(int_file, capsys, monkeypatch):
+    from mpitest_tpu_torch.ops import kernels
+
+    real = kernels.local_sort
+
+    def corrupt(words, engine="lax", diffs=None):
+        out = real(words, engine, diffs)
+        return (out[0].flip(0),) + tuple(out[1:])
+
+    monkeypatch.setattr(kernels, "local_sort", corrupt)
+    rc = cli.main(["sort_cli", int_file[0]], device="cpu")
+    got = capsys.readouterr()
+    assert rc == cli.EXIT_INTEGRITY == 3
+    assert got.err.startswith("[ERROR] sort integrity failure: ")
+    assert len(got.err.splitlines()) == 1
+
+
+def test_retries_exhausted_exits_4(int_file, capsys, monkeypatch):
+    from mpitest_tpu_torch.models import api
+
+    def fail(*a, **k):
+        raise api.SortRetryExhausted("dispatch kept failing")
+
+    monkeypatch.setattr(api, "sort", fail)
+    rc = cli.main(["sort_cli", int_file[0]], device="cpu")
+    got = capsys.readouterr()
+    assert rc == cli.EXIT_RETRIES == 4
+    assert got.err == "[ERROR] sort failed after retries: dispatch kept failing\n"
+
+
+def test_no_card_is_one_error_line(int_file, capsys, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = cli.main(["sort_cli", int_file[0]])
+    got = capsys.readouterr()
+    assert rc == 1 and got.out == ""
+    assert got.err.startswith("[ERROR] ") and "needs a CUDA device" in got.err
+
+
+def test_native_engine_is_recorded(int_file, capsys, monkeypatch):
+    from mpitest_tpu_torch.utils import native_encode
+
+    if not native_encode.build():
+        pytest.skip("no C compiler built the parser")
+    monkeypatch.setenv("SORT_NATIVE_ENCODE", "auto")
+    tr = Tracer()
+    assert cli.main(["sort_cli", int_file[0]], device="cpu", tracer=tr) == 0
+    capsys.readouterr()
+    assert tr.counters["encode_engine"] == "native"
+
+
+def test_radix_pass_states_are_stable_lsd_states():
+    """Pass k's state is the input stably sorted by its low k digits."""
+    x = np.random.default_rng(4).integers(-(2**31), 2**31 - 1, 500, dtype=np.int32)
+    u = x.view(np.uint32) ^ np.uint32(0x80000000)
+    states = list(cli.radix_pass_states(x, 8))
+    assert [k for k, _ in states] == [1, 2, 3, 4]
+    for k, state in states:
+        low = u & np.uint32((1 << (8 * k)) - 1) if k < 4 else u
+        np.testing.assert_array_equal(state, x[np.argsort(low, kind="stable")])
+
+
+# --------------------------------------------------------- on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["auto", "radix_pallas"])
+def test_cli_on_the_card_matches_reference(engine, tmp_path, capsys, monkeypatch):
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU form)")
+    x = np.random.default_rng(6).integers(-(2**31), 2**31 - 1, 1 << 16, dtype=np.int32)
+    p = str(tmp_path / "k.txt")
+    kio.write_keys_text(p, x)
+    monkeypatch.setenv("SORT_LOCAL_ENGINE", engine)
+    monkeypatch.setenv("SORT_RANKS", "1")
+    assert ref_cli.main(["sort_cli", p]) == 0
+    ref = capsys.readouterr()
+    assert cli.main(["sort_cli", p]) == 0
+    got = capsys.readouterr()
+    assert _stdout(got.out) == _stdout(ref.out)
+    assert _shape(got.err) == _shape(ref.err)

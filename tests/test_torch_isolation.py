@@ -19,7 +19,9 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|mpitest_tpu)(\.|\s|$|,
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, mpitest_tpu_torch, mpitest_tpu_torch.ops.kernels\n"
+    code = ("import sys, mpitest_tpu_torch, mpitest_tpu_torch.ops.kernels, "
+            "mpitest_tpu_torch.ops.radix, mpitest_tpu_torch.utils.io, "
+            "mpitest_tpu_torch.utils.native_encode, mpitest_tpu_torch.cli\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mpitest_tpu' or "
             "m.startswith('mpitest_tpu.'))\n"
@@ -34,6 +36,10 @@ def test_no_source_imports_jax_or_reference():
     files = sorted((REPO / "mpitest_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"mpitest_tpu_torch/ops/radix.py", "mpitest_tpu_torch/utils/io.py",
+            "mpitest_tpu_torch/utils/native_encode.py",
+            "mpitest_tpu_torch/cli.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"

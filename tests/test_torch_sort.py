@@ -6,8 +6,11 @@ Both run with ``SORT_LOCAL_ENGINE=bitonic`` (the knob has one name in
 both packages), so the reference runs its Pallas kernels in interpret
 mode and the port walks the same tree with its plain kernel versions.
 The reference names the interpret form of its one-word engine
-``bitonic_interpret``; the port's is ``bitonic``.
+``bitonic_interpret``; the port's is ``bitonic``.  Under
+``SORT_LOCAL_ENGINE=radix_pallas`` the reference on the CPU names its
+fused engine ``radix_pallas_interpret``; the port's is ``radix_pallas``.
 """
+
 
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ def mesh1():
 
 def _engine(counters):
     eng = counters.get("local_engine")
-    return "bitonic" if eng == "bitonic_interpret" else eng
+    return {"bitonic_interpret": "bitonic",
+            "radix_pallas_interpret": "radix_pallas"}.get(eng, eng)
 
 
 _ROUTE_COUNTERS = ("pair_dup_reroute", "pair_residual_fallback")
@@ -211,8 +215,8 @@ def test_verification_failure_is_typed(monkeypatch):
 
     real = kernels.local_sort
 
-    def corrupt(words, engine="lax"):
-        out = real(words, engine)
+    def corrupt(words, engine="lax", diffs=None):
+        out = real(words, engine, diffs)
         return (out[0].flip(0),) + tuple(out[1:])
 
     monkeypatch.setattr(kernels, "local_sort", corrupt)
@@ -223,9 +227,16 @@ def test_verification_failure_is_typed(monkeypatch):
 
 
 def test_knob_validation(monkeypatch):
+    """``radix_pallas`` is accepted (the fused radix kernel, K4); its
+    interpreter twin has no counterpart and is rejected by name."""
     monkeypatch.setenv("SORT_LOCAL_ENGINE", "radix_pallas")
-    with pytest.raises(mt.NotPortedError, match="K4"):
-        mt.sort(_keys(np.int32, 100), device="cpu")
+    x = _keys(np.int32, 100)
+    tr = Tracer()
+    np.testing.assert_array_equal(mt.sort(x, device="cpu", tracer=tr), np.sort(x))
+    assert tr.counters["local_engine"] == "radix_pallas"
+    monkeypatch.setenv("SORT_LOCAL_ENGINE", "radix_pallas_interpret")
+    with pytest.raises(mt.KnobError, match="use 'radix_pallas'"):
+        mt.sort(x, device="cpu")
     monkeypatch.setenv("SORT_LOCAL_ENGINE", "warp")
     with pytest.raises(mt.KnobError, match="SORT_LOCAL_ENGINE='warp'"):
         mt.sort(_keys(np.int32, 100), device="cpu")
@@ -238,3 +249,176 @@ def test_knob_validation(monkeypatch):
 def test_bad_algorithm():
     with pytest.raises(ValueError, match="unknown algorithm"):
         mt.sort(np.arange(4), algorithm="bogo", device="cpu")
+
+
+# ------------------------------------------------------- radix_pallas
+
+
+def _passes(fn):
+    from mpitest_tpu_torch.ops import radix
+
+    before = radix.pass_launches()
+    out = fn()
+    return out, radix.pass_launches() - before
+
+
+@pytest.fixture
+def small_envelope(monkeypatch):
+    """Shrink the fused envelope to 4096 keys in both packages, so both
+    sides of it run at interpret-friendly sizes."""
+    from mpitest_tpu.ops import radix_pallas as ref_rp
+    from mpitest_tpu_torch.ops import radix
+
+    monkeypatch.setattr(ref_rp, "FUSED_MAX_ELEMS", 4096)
+    monkeypatch.setattr(radix, "FUSED_MAX_ELEMS", 4096)
+    return 4096
+
+
+@pytest.mark.parametrize("dtype,n", [(np.int32, 3000), (np.float32, 2048),
+                                     (np.uint16, 1000), (np.int64, 3001),
+                                     (np.float64, 1500)],
+                         ids=lambda v: getattr(np.dtype(v), "name", str(v))
+                         if not isinstance(v, int) else str(v))
+def test_radix_pallas_host_input_matches_reference(dtype, n, mesh1, monkeypatch):
+    """Host input inside the envelope (64-bit keys below 2^13 take the
+    general route): K4 over every word, the pass plan compacted from the
+    words' ranges, bytes and engine equal to the reference's."""
+    from mpitest_tpu_torch.ops import radix
+
+    x = _keys(dtype, n, seed=n)
+    (got, want, pc, rc), passes = _passes(
+        lambda: _both(x, mesh1, monkeypatch, engine="radix_pallas"))
+    assert got.tobytes() == want.tobytes()
+    assert _engine(pc) == _engine(rc) == "radix_pallas"
+    words = api.codec_for(np.dtype(dtype)).encode(x)
+    diffs = tuple((1 << d.bit_length()) - 1 for d in api._word_diffs(words))
+    assert passes == len(radix.pass_plan(diffs, len(words)))
+
+
+def test_radix_pallas_compacts_narrow_int32(mesh1, monkeypatch):
+    """int32 keys in [0, 2^20): 3 passes (8 + 8 + 4 bits), not 4."""
+    x = np.random.default_rng(20).integers(0, 1 << 20, 4000).astype(np.int32)
+    (got, want, pc, _), passes = _passes(
+        lambda: _both(x, mesh1, monkeypatch, engine="radix_pallas"))
+    assert got.tobytes() == want.tobytes() and passes == 3
+    assert pc["local_engine"] == "radix_pallas"
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32], ids=["int32", "float32"])
+def test_radix_pallas_device_input_runs_full_plan(dtype, mesh1, monkeypatch):
+    """Device-resident input runs the full plan (no range reduction on
+    the device), as the reference's device program does."""
+    import jax
+
+    n = 2500
+    x = _keys(dtype, n, seed=8)
+    x[:100] = x[100]                 # narrow or not, the plan stays full
+    monkeypatch.setenv("SORT_LOCAL_ENGINE", "radix_pallas")
+    rt, pt = RefTracer(), Tracer()
+    want = ref_api.sort(jax.device_put(x, jax.devices()[0]), mesh=mesh1, tracer=rt)
+    got, passes = _passes(lambda: mt.sort(torch.from_numpy(x), device="cpu",
+                                          tracer=pt))
+    assert got.tobytes() == want.tobytes()
+    assert _engine(pt.counters) == _engine(rt.counters) == "radix_pallas"
+    assert passes == 4
+
+
+def test_radix_pallas_device_input_64bit_general_route(mesh1, monkeypatch):
+    """64-bit device input below 2^13 keys: the general route, K4 over
+    both words with the full plan (8 passes).  The reference's interpret
+    kernel cannot run under the x64 mode its 64-bit device input needs,
+    so the bytes are held against its host-input run."""
+    x = np.random.default_rng(9).integers(0, 1 << 20, 3000).astype(np.uint64)
+    out, passes, c = _run_port(torch.from_numpy(x), monkeypatch)
+    assert (c["local_engine"], passes) == ("radix_pallas", 8)
+    assert out.tobytes() == ref_api.sort(x, mesh=mesh1).tobytes()
+
+
+@pytest.mark.parametrize("side", ["inside", "outside"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=["int32", "int64"])
+def test_radix_pallas_envelope(side, dtype, small_envelope, mesh1, monkeypatch):
+    """At the envelope's edge the fused engine runs, one key past it the
+    lax sort does, in both packages (64-bit keys below 2^13 take the
+    general route there, as in the reference)."""
+    n = small_envelope + (side == "outside")
+    x = _keys(dtype, n, seed=n)
+    (got, want, pc, rc), passes = _passes(
+        lambda: _both(x, mesh1, monkeypatch, engine="radix_pallas"))
+    assert got.tobytes() == want.tobytes()
+    eng = "radix_pallas" if side == "inside" else "lax"
+    assert _engine(pc) == _engine(rc) == eng
+    assert (passes > 0) == (side == "inside")
+
+
+@pytest.mark.parametrize("side", ["inside", "outside"])
+def test_radix_pallas_envelope_device_input(side, small_envelope, mesh1,
+                                            monkeypatch):
+    import jax
+
+    n = small_envelope + (side == "outside")
+    x = _keys(np.int32, n, seed=n + 1)
+    monkeypatch.setenv("SORT_LOCAL_ENGINE", "radix_pallas")
+    rt = RefTracer()
+    want = ref_api.sort(jax.device_put(x, jax.devices()[0]), mesh=mesh1, tracer=rt)
+    out, passes, c = _run_port(torch.from_numpy(x), monkeypatch)
+    assert out.tobytes() == want.tobytes()
+    eng = "radix_pallas" if side == "inside" else "lax"
+    assert _engine(c) == _engine(rt.counters) == eng
+    assert passes == (4 if side == "inside" else 0)
+
+
+def _run_port(x, monkeypatch, **kw):
+    from mpitest_tpu_torch.ops import _build
+
+    monkeypatch.setenv("SORT_LOCAL_ENGINE", "radix_pallas")
+    tr = Tracer()
+    before = dict(_build.LAUNCHES)
+    out, passes = _passes(lambda: mt.sort(x, device="cpu", tracer=tr, **kw))
+    assert _build.LAUNCHES == before  # the CPU runs no kernel
+    return out, passes, tr.counters
+
+
+def test_radix_pallas_64bit_tpu_decision_table(mesh1, monkeypatch):
+    """64-bit keys with n >= 2^13 under radix_pallas take the reference's
+    TPU decisions (``api.py:1469-1473``): the host constant-word shortcut
+    runs K4 on the varying word (full plan, counter ``bitonic_1w1``), the
+    dup sniff goes to lax, otherwise the bitonic pair engine runs; the
+    device form keeps the bitonic one-word engine (no K4 pass).  The CPU
+    reference takes its general two-word route instead, so only the
+    bytes are compared with it."""
+    rng = np.random.default_rng(64)
+    n = N
+    window = rng.integers(5 << 32, 6 << 32, n, dtype=np.int64)
+    out, passes, c = _run_port(window, monkeypatch)
+    assert (c["local_engine"], passes) == ("bitonic_1w1", 4)
+    monkeypatch.setenv("SORT_LOCAL_ENGINE", "radix_pallas")
+    assert out.tobytes() == ref_api.sort(window, mesh=mesh1).tobytes()
+
+    lo_const = rng.integers(0, 2**30, n, dtype=np.int64) << 32
+    out, passes, c = _run_port(lo_const, monkeypatch)
+    assert (c["local_engine"], passes) == ("bitonic_1w0", 4)
+    assert out.tobytes() == np.sort(lo_const).tobytes()
+
+    hi = rng.integers(0, 8, n).astype(np.int64)
+    dup = (hi << 33) | rng.integers(0, 2**32, n).astype(np.int64)
+    out, passes, c = _run_port(dup, monkeypatch)
+    assert (c["local_engine"], passes, c["pair_dup_reroute"]) == ("lax", 0, 1)
+    assert out.tobytes() == np.sort(dup).tobytes()
+
+    full = _keys(np.int64, n, seed=65)
+    out, passes, c = _run_port(full, monkeypatch)
+    assert (c["local_engine"], passes) == ("bitonic_pair", 0)
+    assert out.tobytes() == np.sort(full).tobytes()
+
+    out, passes, c = _run_port(torch.from_numpy(window), monkeypatch)
+    assert (c["local_engine"], passes) == ("bitonic_1w1", 0)
+    assert out.tobytes() == np.sort(window).tobytes()
+
+
+def test_radix_pallas_pair_shortcut_outside_envelope(small_envelope, monkeypatch):
+    """Past the envelope the host constant-word shortcut's one-word sort
+    resolves to lax: the counter stays ``bitonic_1w1``, no K4 pass."""
+    x = np.random.default_rng(3).integers(5 << 32, 6 << 32, N, dtype=np.int64)
+    out, passes, c = _run_port(x, monkeypatch)
+    assert (c["local_engine"], passes) == ("bitonic_1w1", 0)
+    assert out.tobytes() == np.sort(x).tobytes()
