@@ -16,7 +16,11 @@ Phases, each failing loudly (any exception exits non-zero):
              K4 (radix_pass) at 2^20: one, two and four planes, full and
              compacted plans, the payload shape ``(digit,) + 2 words``
              with diffs (255, 0, 0), n = 2^20 - 3001, and the all-equal,
-             sorted, reversed and 0xFFFFFFFF patterns.
+             sorted, reversed and 0xFFFFFFFF patterns.  K5
+             (segment_pack) and K6 (fused_pass_pack, 1-3 planes) at P = 8
+             over 2^25 - 777 keys (n not a multiple of 1024) with ragged,
+             empty and overflowing (cnt > cap) segments; K7 (remote_a2a)
+             over eight [8, 2^22] send matrices.
              Tolerance: exact (integer words; every byte must match).
 3. main    — three paths, each with the launch counts set to 0 just
              before it and read just after:
@@ -32,16 +36,32 @@ Phases, each failing loudly (any exception exits non-zero):
              (c) the key-file CLI in process (``mpitest_tpu_torch.cli``):
              a 2^28 int32 SORTBIN1 file and a 2^22 int32 text file under
              ``auto`` (K1), a 2^20 text file under ``radix_pallas`` (K4).
+             (d) ``sort(x, mesh=make_mesh(8))``, radix, eight ranks on the
+             card, exchange engine ``pallas`` (K6 + K7): int32 2^28 from
+             the host and resident on the card, int64 2^27, float32 2^24
+             with NaN/±0/±inf, N < P and non-divisible N, sorted-skew 2^24
+             (``skew_restage`` >= 1); under ``SORT_EXCHANGE_ENGINE=lax``
+             (K5) at 2^26; under ``radix_pallas`` at 2^23 (K4 as pass 1);
+             (e) sample sort on eight ranks: int32 2^28 (K1 inside), int64
+             2^27 (K2 + K3 inside), duplicate-skew (``sample_skew_fallback``
+             = 1);
+             (f) the CLI with ``SORT_RANKS=8`` on a 2^28 SORTBIN1 file,
+             ``sample`` and ``radix``.
              Every output equals its oracle (np.sort, or torch.sort on the
-             card for the 2^28/2^27 rows; the CLI's probe equals the
-             (n/2)-th element of np.sort); the ``local_engine`` counter,
-             the kernel launch counts and K4's pass counts are asserted.
+             card for the large rows and every mesh row; the CLI's probe
+             equals the (n/2)-th element of np.sort); the ``local_engine``
+             counter, the kernel launch counts and K4's pass counts are
+             asserted.
 4. timing  — CUDA events, warm median: each kernel at the main path's
              shape beside its plain version, its bound and torch.sort (K4
              at 2^28 one word with K4 byte-equal to plain there, 2^27 two
              words and 2^20); end-to-end sort() of the device-resident
              inputs; the CLI's own timing line and wall time on the 2^28
-             SORTBIN1 file.
+             SORTBIN1 file; K5/K6/K7 at the mesh paths' shapes beside their
+             plain versions, their bounds and (K7) one ``copy_`` of the
+             transposed [P, P, cap] view; end-to-end sort() on eight ranks
+             of device-resident int32 2^28 (radix and sample) and int64
+             2^27 beside one rank.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -73,13 +93,20 @@ SOURCES = {
     "bitonic_pairs_u32": "mpitest_tpu_torch/csrc/bitonic.cu",
     "fix_runs_pairs": "mpitest_tpu_torch/csrc/bitonic.cu",
     "radix_pass": "mpitest_tpu_torch/csrc/radix.cu",
+    "segment_pack": "mpitest_tpu_torch/csrc/exchange.cu",
+    "fused_pass_pack": "mpitest_tpu_torch/csrc/exchange.cu",
+    "remote_a2a": "mpitest_tpu_torch/csrc/exchange.cu",
 }
 REPLACES = {
     "bitonic_u32": "mpitest_tpu/ops/bitonic.py:308,371,514,571",
     "bitonic_pairs_u32": "mpitest_tpu/ops/bitonic.py:703,758,970,1038",
     "fix_runs_pairs": "mpitest_tpu/ops/bitonic.py:1101",
     "radix_pass": "mpitest_tpu/ops/radix_pallas.py:186",
+    "segment_pack": "mpitest_tpu/ops/pallas_kernels.py:139",
+    "fused_pass_pack": "mpitest_tpu/ops/exchange.py:159",
+    "remote_a2a": "mpitest_tpu/ops/exchange.py:244",
 }
+RANKS = 8
 #: 32-bit operations per element per K4 pass: two digit extractions
 #: (shift, mask) for the histogram and the scatter, one histogram add and
 #: one rank add.
@@ -109,8 +136,9 @@ def main() -> int:
     import mpitest_tpu_torch as mt
     from mpitest_tpu_torch import cli
     from mpitest_tpu_torch.models import api
-    from mpitest_tpu_torch.ops import _build, bitonic, kernels, radix
+    from mpitest_tpu_torch.ops import _build, bitonic, exchange, kernels, pack, radix
     from mpitest_tpu_torch.ops.keys import codec_for, to_device_words, unsigned_order
+    from mpitest_tpu_torch.parallel.mesh import make_mesh
     from mpitest_tpu_torch.utils import io as kio
     from mpitest_tpu_torch.utils import native_encode
     from mpitest_tpu_torch.utils.trace import Tracer
@@ -266,6 +294,48 @@ def main() -> int:
     for name, pat in (("all-equal", torch.full_like(x, 12345)), ("sorted", srt),
                       ("reversed", srt.flip(0).contiguous()), ("0xFFFFFFFF keys", ffs)):
         k4_check(f"2^20 {name}", (pat,))
+    # K5, K6 at P = 8 over one rank's 2^28 / 8 shard (n not a multiple of
+    # 1024); K7 over eight [8, 2^22] send matrices
+    def segments(n: int, mode: str, cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+        cuts = np.sort(rng.integers(0, n + 1, RANKS - 1))
+        starts = np.concatenate([[0], cuts]).astype(np.int32)
+        cnts = (np.concatenate([cuts, [n]]) - starts).astype(np.int32)
+        if mode == "empty":
+            cnts[1::2] = 0
+        if mode == "overflow":
+            cnts[:] = (n - (cap + 4096)) // (RANKS - 1)
+            cnts[3] = n - int(cnts.sum()) + int(cnts[3])
+            starts = (np.cumsum(cnts) - cnts).astype(np.int32)
+            assert cnts.max() > cap
+        return (torch.from_numpy(starts).to(dev), torch.from_numpy(cnts).to(dev))
+
+    def k567_check(label: str, got, want) -> int:
+        sync()
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        if err or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{label}: kernel != plain (max_abs_err {err})")
+        log(f"[kernels] {label}: bytes equal to plain")
+        return err
+
+    rng = np.random.default_rng(25)
+    n = (1 << 25) - 777
+    planes = tuple(words(n, 90 + i) for i in range(3))
+    for mode, cap in (("ragged", 1 << 23), ("empty", 1 << 23), ("overflow", 1 << 22)):
+        st, ct = segments(n, mode, cap)
+        k567_check(f"K5 P=8 n=2^25-777 cap={cap} {mode}",
+                   (pack.segment_pack(planes[0], st, ct, cap, RANKS, 0xFFFFFFFF),),
+                   (pack.segment_pack_plain(planes[0], st, ct, cap, RANKS, 0xFFFFFFFF),))
+        for w in (1, 2, 3):
+            fills = (0xFFFFFFFF, 0, 7)[:w]
+            k567_check(f"K6 P=8 n=2^25-777 cap={cap} {mode} x{w}",
+                       exchange.fused_pass_pack(planes[:w], st, ct, cap, RANKS, fills),
+                       exchange.fused_pass_pack_plain(planes[:w], st, ct, cap, RANKS,
+                                                      fills))
+    del planes
+    sends = [words(RANKS * (1 << 22), 100 + r).view(RANKS, 1 << 22) for r in range(RANKS)]
+    k567_check("K7 P=8 [8, 2^22] per rank", exchange.remote_a2a(sends),
+               exchange.remote_a2a_plain(sends))
+    del sends
     for name, count in bitonic.LAUNCHES.items():
         if count <= before[name]:
             raise AssertionError(f"kernel {name} never launched in phase 2")
@@ -318,16 +388,20 @@ def main() -> int:
         return counts
 
     @contextlib.contextmanager
-    def local_engine(value: str):
-        old = os.environ.get("SORT_LOCAL_ENGINE")
-        os.environ["SORT_LOCAL_ENGINE"] = value
+    def env(**values: str):
+        old = {k: os.environ.get(k) for k in values}
+        os.environ.update(values)
         try:
             yield
         finally:
-            if old is None:
-                os.environ.pop("SORT_LOCAL_ENGINE", None)
-            else:
-                os.environ["SORT_LOCAL_ENGINE"] = old
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def local_engine(value: str):
+        return env(SORT_LOCAL_ENGINE=value)
 
     def card_sort_oracle(host: np.ndarray):
         def f():
@@ -407,12 +481,12 @@ def main() -> int:
     cli_times = {}
 
     def run_cli(label: str, path: str, engine: str, x: np.ndarray,
-                local: str) -> None:
+                local: str, ranks: int = 1, algo: str = "sample") -> None:
         out, err = io.StringIO(), io.StringIO()
         tr = Tracer()
         t = time.perf_counter()
-        with local_engine(engine), contextlib.redirect_stdout(out), \
-                contextlib.redirect_stderr(err):
+        with env(SORT_LOCAL_ENGINE=engine, SORT_RANKS=str(ranks), SORT_ALGO=algo), \
+                contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli.main(["mpitest_tpu_torch.cli", path], tracer=tr)
         wall = time.perf_counter() - t
         if rc != 0:
@@ -420,8 +494,8 @@ def main() -> int:
         n = x.size
         k = n // 2 - 1
         probe = int(np.partition(x, k)[k])      # np.sort(x)[n//2-1]
-        want = [f"Each bucket will be put {n} items.",
-                f"The n/2-th sorted element: {probe}"]
+        want = ([f"Each bucket will be put {-(-n // ranks)} items."]
+                if algo == "sample" else []) + [f"The n/2-th sorted element: {probe}"]
         if out.getvalue().splitlines() != want:
             raise AssertionError(f"CLI {label}: stdout {out.getvalue()!r} != {want}")
         m = re.fullmatch(r"Endtime\(\)-Starttime\(\) = (\d+\.\d{5}) sec\n",
@@ -432,7 +506,8 @@ def main() -> int:
             raise AssertionError(f"CLI {label}: local_engine="
                                  f"{tr.counters.get('local_engine')} != {local}")
         cli_times[label] = (float(m.group(1)), wall)
-        log(f"[main] CLI {label} ({engine}): exit 0, stdout equal to the reference "
+        log(f"[main] CLI {label} ({engine}, SORT_RANKS={ranks}, {algo}): exit 0, "
+            "stdout equal to the reference "
             f"lines with probe np.sort(x)[n//2-1] = {probe}, "
             f"local_engine={tr.counters.get('local_engine')}, "
             f"encode_engine={tr.counters.get('encode_engine')}")
@@ -453,11 +528,121 @@ def main() -> int:
                 kio.write_keys_text(f, x)
                 run_cli(f"2^{log2n} int32 text", f, engine, x, local)
 
+    mesh = make_mesh(RANKS)            # eight ranks, all on this card
+    mesh_counters: dict[str, dict] = {}
+
+    def card_float_oracle(xf: np.ndarray):
+        def f():
+            t = torch.from_numpy(xf).to(dev)
+            u = t.view(torch.int32)            # IEEE totalOrder, signed form
+            key = torch.where(u < 0, ~u ^ -(2**31), u)
+            return t[torch.sort(key).indices].cpu().numpy()
+        return f
+
+    def run_mesh_case(label: str, x, algo: str, oracle, local: str, **checks) -> None:
+        tr = Tracer()
+        t = time.perf_counter()
+        got = mt.sort(x, algorithm=algo, mesh=mesh, tracer=tr)
+        secs = time.perf_counter() - t
+        want = oracle()
+        if got.dtype != want.dtype or not np.array_equal(
+                got.view(np.uint8), want.view(np.uint8)):
+            raise AssertionError(f"{label}: output differs from the oracle")
+        c = tr.counters
+        if c.get("local_engine") != local:
+            raise AssertionError(f"{label}: local_engine={c.get('local_engine')} != {local}")
+        for name, v in checks.items():
+            val = c.get(name, 0)
+            if not (v(val) if callable(v) else val == v):
+                raise AssertionError(f"{label}: counter {name}={val}")
+        if c.get("verify_runs") != 1:
+            raise AssertionError(f"{label}: result not verified")
+        mesh_counters[label] = dict(c)
+        keys = ("exchange_engine", "local_engine", "digit_bits", "exchange_passes",
+                "negotiated_cap", "exchange_cap", "exchange_retries", "skew_restage",
+                "sample_skew_fallback", "exchange_peer_ratio")
+        log(f"[main] {label}: equal to torch.sort on the card, "
+            f"{ {k: c[k] for k in keys if k in c} }, {secs:.3f} s host wall "
+            "incl. encode/verify/decode")
+
+    def int32_keys(n: int) -> np.ndarray:
+        return rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+
+    def mesh_radix_path() -> None:
+        x = int32_keys(1 << 28)
+        run_mesh_case("radix P=8 sort(np int32 2^28)", x, "radix",
+                      card_sort_oracle(x), "lax", exchange_engine="pallas")
+        del x
+        xd = words(1 << 28, 128)
+        run_mesh_case("radix P=8 sort(cuda int32 2^28)", xd, "radix",
+                      lambda: torch.sort(xd).values.cpu().numpy(), "lax")
+        del xd
+        x = rng.integers(-(2**63), 2**63 - 1, 1 << 27, dtype=np.int64)
+        run_mesh_case("radix P=8 sort(np int64 2^27)", x, "radix", card_sort_oracle(x),
+                      "lax", exchange_passes=4)
+        del x
+        for label, xf in (("2^24", float_keys(1 << 24)), ("5 keys (N < P)", float_keys(8)[:5]),
+                          ("2^24+1001 (non-divisible)", float_keys((1 << 24) + 1001))):
+            run_mesh_case(f"radix P=8 sort(np float32 {label}, NaN/±0/±inf)", xf,
+                          "radix", card_float_oracle(xf), "lax")
+        xs = np.sort(rng.integers(0, 1 << 16, 1 << 24).astype(np.int32))
+        run_mesh_case("radix P=8 sort(np int32 2^24 sorted-skew)", xs, "radix",
+                      card_sort_oracle(xs), "lax", skew_restage=lambda v: v >= 1)
+
+    def mesh_lax_path() -> None:
+        with env(SORT_EXCHANGE_ENGINE="lax"):
+            x = int32_keys(1 << 26)
+            run_mesh_case("radix P=8 lax engine sort(np int32 2^26)", x, "radix",
+                          card_sort_oracle(x), "lax", exchange_engine="lax")
+
+    def mesh_k4_path() -> None:
+        with local_engine("radix_pallas"):
+            x = int32_keys(1 << 23)
+            base = radix.pass_launches()
+            run_mesh_case("radix P=8 radix_pallas sort(np int32 2^23)", x, "radix",
+                          card_sort_oracle(x), "radix_pallas")
+            if radix.pass_launches() - base != 2 * RANKS:
+                raise AssertionError("K4 did not run pass 1 of every rank "
+                                     "(two 8-bit passes of the 16-bit digit)")
+
+    def mesh_sample_path() -> None:
+        x = int32_keys(1 << 28)
+        run_mesh_case("sample P=8 sort(np int32 2^28)", x, "sample",
+                      card_sort_oracle(x), "bitonic", sample_skew_fallback=0)
+        del x
+        x = rng.integers(-(2**63), 2**63 - 1, 1 << 27, dtype=np.int64)
+        run_mesh_case("sample P=8 sort(np int64 2^27)", x, "sample",
+                      card_sort_oracle(x), "bitonic", sample_skew_fallback=0)
+        del x
+        x = rng.choice(np.asarray([3, 7, 7, 7, 42], np.int32), 1 << 24)
+        run_mesh_case("sample P=8 sort(np int32 2^24 duplicate-skew)", x, "sample",
+                      card_sort_oracle(x), "lax", sample_skew_fallback=1)
+
+    def mesh_cli_path() -> None:
+        with tempfile.TemporaryDirectory() as tmp:
+            x = rng.integers(-(2**31), 2**31 - 1, 1 << 28, dtype=np.int32,
+                             endpoint=True)
+            f = os.path.join(tmp, "keys28.bin")
+            kio.write_keys_binary(f, x)
+            run_cli("2^28 int32 SORTBIN1 P=8 sample", f, "auto", x, "bitonic",
+                    ranks=RANKS, algo="sample")
+            run_cli("2^28 int32 SORTBIN1 P=8 radix", f, "auto", x, "lax",
+                    ranks=RANKS, algo="radix")
+
     main_launches = run_path("the main path (sort(), auto)", (K1, K2, K3), main_path)
     radix_launches = run_path("sort() under radix_pallas", (K4,), radix_path)
     run_path("the key-file CLI", (K1, K4), cli_path)
+    K5, K6, K7 = "segment_pack", "fused_pass_pack", "remote_a2a"
+    mesh_launches = run_path("radix on eight ranks (pallas engine)", (K6, K7),
+                             mesh_radix_path)
+    lax_launches = run_path("radix on eight ranks (lax engine)", (K5,), mesh_lax_path)
+    run_path("radix on eight ranks under radix_pallas", (K4, K6, K7), mesh_k4_path)
+    run_path("sample sort on eight ranks", (K1, K2, K3, K6, K7), mesh_sample_path)
+    run_path("the key-file CLI, SORT_RANKS=8", (K1, K6, K7), mesh_cli_path)
     path_launches = {K1: main_launches[K1], K2: main_launches[K2],
-                     K3: main_launches[K3], K4: radix_launches[K4]}
+                     K3: main_launches[K3], K4: radix_launches[K4],
+                     K5: lax_launches[K5], K6: mesh_launches[K6],
+                     K7: mesh_launches[K7]}
 
     # ---------------------------------------------------------- 4. timing
     entries = []
@@ -468,7 +653,8 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def entry(name: str, ms: float, plain_ms: float, err: int, nbytes: float,
-              ops: float, library_ms: float | None, shape: str) -> None:
+              ops: float, library_ms: float | None, shape: str,
+              library: str = "torch.sort") -> None:
         b_ms, b_by = bound(nbytes, ops)
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -477,7 +663,7 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
         log(f"[timing] {name} {shape}: {ms:.3f} ms kernel, {plain_ms:.1f} ms "
             f"plain, bound {b_ms:.3f} ms ({b_by}; HBM bytes alone "
-            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms), torch.sort "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms), {library} "
             f"{'-' if library_ms is None else f'{library_ms:.3f} ms'} "
             f"| card {card}")
 
@@ -569,6 +755,45 @@ def main() -> int:
     x = words(1 << 20, 284)
     k4_time("2^20 one word", (x,), x, False)
     del x
+    # K5/K6/K7 at the mesh paths' shapes: one rank's pack (n keys into
+    # [P, cap] with the run's negotiated cap, segments split evenly), and
+    # one all-to-all over the eight ranks' send matrices.
+    def even_segments(n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        cnt = torch.full((RANKS,), n // RANKS, dtype=torch.int32, device=dev)
+        cnt[-1] += n - int(cnt.sum())
+        return torch.cumsum(cnt, 0, dtype=torch.int32) - cnt, cnt
+
+    for name, n, cap_of, n_planes in (
+            (K5, 1 << 23, "radix P=8 lax engine sort(np int32 2^26)", 1),
+            (K6, 1 << 25, "radix P=8 sort(cuda int32 2^28)", 1)):
+        cap = mesh_counters[cap_of]["exchange_cap"]
+        planes = tuple(words(n, 300 + i) for i in range(n_planes))
+        st, ct = even_segments(n)
+        if name == K5:
+            def run(): return (pack.segment_pack(planes[0], st, ct, cap, RANKS),)
+            def plain(): return (pack.segment_pack_plain(planes[0], st, ct, cap, RANKS),)
+        else:
+            def run(): return exchange.fused_pass_pack(planes, st, ct, cap, RANKS)
+            def plain(): return exchange.fused_pass_pack_plain(planes, st, ct, cap, RANKS)
+        err = k567_check(f"{name} P=8 n={n} cap={cap} (timing shape)", run(), plain())
+        entry(name, timed(run, REPS), timed(plain, PLAIN_REPS), err,
+              n_planes * 4 * (n + RANKS * cap), n_planes * RANKS * cap, None,
+              f"one rank: {n_planes} x 2^{n.bit_length() - 1} keys -> [8, {cap}]")
+        del planes
+
+    cap = mesh_counters["radix P=8 sort(cuda int32 2^28)"]["exchange_cap"]
+    sends = [words(RANKS * cap, 400 + r).view(RANKS, cap) for r in range(RANKS)]
+    err = k567_check(f"K7 P=8 cap={cap} (timing shape)", exchange.remote_a2a(sends),
+                     exchange.remote_a2a_plain(sends))
+    stacked = torch.stack(sends)                         # [src, dst, cap]
+    recv_all = torch.empty_like(stacked)                 # [dst, src, cap]
+    k7_lib = timed(lambda: recv_all.copy_(stacked.transpose(0, 1)), REPS)
+    entry(K7, timed(lambda: exchange.remote_a2a(sends), REPS),
+          timed(lambda: exchange.remote_a2a_plain(sends), PLAIN_REPS), err,
+          RANKS * 2 * RANKS * cap * 4, 0, k7_lib,
+          f"8 ranks x [8, {cap}] (8 launches)", library="copy_ of [P, P, cap]^T")
+    del sends, stacked, recv_all
+
     ends, wall = cli_times["2^28 int32 SORTBIN1"]
     log(f"[timing] CLI 2^28 int32 SORTBIN1 (auto, K1): Endtime()-Starttime() = "
         f"{ends:.5f} s, wall {wall:.3f} s incl. mmap open and the stdout lines "
@@ -577,10 +802,12 @@ def main() -> int:
     for label, x in (("int32 2^28", words(1 << 28, 282)),
                      ("int64 2^27", (words(1 << 27, 273).to(torch.int64) << 32)
                       | u64(words(1 << 27, 274)))):
-        ms = timed(lambda: mt.sort(x, return_result=True), REPS)
-        log(f"[timing] end-to-end sort(cuda {label}, verify on, result on "
-            f"card): {ms:.3f} ms = {x.numel() / ms / 1e3:.1f} Mkeys/s "
-            f"| card {card}")
+        for ranks, algo in ((1, "radix"), (RANKS, "radix"), (RANKS, "sample")):
+            kw = {"mesh": mesh, "algorithm": algo} if ranks > 1 else {}
+            ms = timed(lambda: mt.sort(x, return_result=True, **kw), REPS)
+            log(f"[timing] end-to-end sort(cuda {label}, P={ranks}, {algo}, verify "
+                f"on, result on card): {ms:.3f} ms = {x.numel() / ms / 1e3:.1f} "
+                f"Mkeys/s | card {card}")
         del x
 
     log(f"[card] {card}")

@@ -1,9 +1,10 @@
 """mpitest_tpu_torch — the sorter on PyTorch and CUDA (NVIDIA H100).
 
-A port of ``mpitest_tpu`` beside it: the same public ``sort()``, codecs,
-verifier and typed errors, with the Pallas kernels of the single-card
-path rewritten as CUDA kernels (``csrc/``).  Imports ``torch``, never
-``jax`` and nothing of ``mpitest_tpu``.
+A port of ``mpitest_tpu`` beside it: the same public ``sort()``,
+``make_mesh()``, codecs, verifier and typed errors, with the Pallas
+kernels of the one-rank and distributed paths rewritten as CUDA kernels
+(``csrc/``).  Imports ``torch``, never ``jax`` and nothing of
+``mpitest_tpu``.
 """
 
 from mpitest_tpu_torch.models.api import DistributedSortResult, sort
@@ -12,6 +13,7 @@ from mpitest_tpu_torch.models.supervisor import (
     SortIntegrityError,
     SortRetryExhausted,
 )
+from mpitest_tpu_torch.parallel.mesh import make_mesh
 from mpitest_tpu_torch.utils.knobs import KnobError, NotPortedError
 
 __all__ = [
@@ -21,5 +23,6 @@ __all__ = [
     "SortFaultError",
     "SortIntegrityError",
     "SortRetryExhausted",
+    "make_mesh",
     "sort",
 ]

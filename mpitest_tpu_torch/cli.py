@@ -1,5 +1,5 @@
-"""The key-file CLI on one card — the reference's own program contract
-(port of the in-memory leg of ``drivers/sort_cli.py``).
+"""The key-file CLI — the reference's own program contract (port of the
+in-memory leg of ``drivers/sort_cli.py``).
 
     python -m mpitest_tpu_torch.cli <file> [debug]
 
@@ -9,9 +9,11 @@
   malformed or empty file prints ``sort(): '<file>' is not a valid file
   for read.`` and exits 1.
 * stdout: ``Each bucket will be put N items.`` (``SORT_ALGO=sample``, the
-  default), the ``[COMMON]``/``[MASTER]`` protocol lines at debug >= 2,
-  at debug > 2 the per-pass ``DUMP`` lines (radix, integer keys) and the
-  full ``i|v`` dump, then ``The n/2-th sorted element: X``.
+  default; N = ceil(n / P)), the ``[COMMON]``/``[MASTER]``/``[SLAVE]``
+  protocol lines at debug >= 2 (in rank order), at debug > 2 the
+  per-pass ``DUMP`` lines (radix, integer keys, each rank's block of the
+  reference's block contract) and the full ``i|v`` dump, then ``The
+  n/2-th sorted element: X``.
 * stderr: ``Endtime()-Starttime() = T sec``, timed from after the file
   read to the materialized result.
 * exit 3 on :class:`SortIntegrityError`, 4 on :class:`SortRetryExhausted`,
@@ -21,17 +23,21 @@
 The file is read by ``utils/io.py`` (SORTBIN1 as an mmap, text through the
 ``SORT_NATIVE_ENCODE`` parser; the engine that ran is the tracer's
 ``encode_engine`` counter) and sorted by the same ``sort()`` the library
-exposes, so ``SORT_LOCAL_ENGINE`` picks its kernels.  It runs on the card
-unless :func:`main` is given ``device="cpu"``.  What the port cannot take
-yet ends with one ``[ERROR]`` line and exit 1, never a silent in-memory
-sort: ``SORT_RANKS`` > 1, a file above ``SORT_MEM_BUDGET`` (the external
-sort), ``SORT_FAULTS``/``SORT_METRICS``/``SORT_TRACE``/``SORT_PROFILE``,
-and ``--explain``.
+exposes, so ``SORT_LOCAL_ENGINE`` and ``SORT_EXCHANGE_ENGINE`` pick its
+kernels.  ``SORT_RANKS`` (default: ``SORT_DEVICES``, one rank per card)
+sets the mesh: P > 1 ranks run the distributed sort, round-robin over
+the cards, so all of them share the card of a one-card machine;
+``SORT_DIGIT_BITS``, ``SORT_CAP_FACTOR`` and ``SORT_OVERSAMPLE`` reach the
+sort as in the reference.  It runs on the card unless :func:`main` is
+given ``device="cpu"`` (then P ranks on the CPU).  What the port cannot
+take yet ends with one ``[ERROR]`` line and exit 1, never a silent
+in-memory sort: a file above ``SORT_MEM_BUDGET`` (the external sort),
+``SORT_FAULTS``/``SORT_METRICS``/``SORT_TRACE``/``SORT_PROFILE``, and
+``--explain``.
 """
 
 from __future__ import annotations
 
-import math
 import re
 import sys
 import time
@@ -41,10 +47,11 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from mpitest_tpu_torch.models import api
+from mpitest_tpu_torch.models import api, radix_sort
 from mpitest_tpu_torch.models.supervisor import SortIntegrityError, SortRetryExhausted
 from mpitest_tpu_torch.ops import radix
 from mpitest_tpu_torch.ops.keys import codec_for, to_device_words, to_host_words
+from mpitest_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mpitest_tpu_torch.utils import io as kio
 from mpitest_tpu_torch.utils import knobs, native_encode
 from mpitest_tpu_torch.utils.knobs import NotPortedError
@@ -58,7 +65,9 @@ _UNPORTED_KNOBS = ("SORT_FAULTS", "SORT_METRICS", "SORT_TRACE", "SORT_PROFILE")
 
 #: Knobs read later in the run, validated up front so garbage fails here.
 _VALIDATED = ("SORT_INGEST_CHUNK", "SORT_INGEST_THREADS", "SORT_NATIVE_ENCODE",
-              "SORT_VERIFY", "SORT_LOCAL_ENGINE", "SORT_MEM_BUDGET")
+              "SORT_VERIFY", "SORT_LOCAL_ENGINE", "SORT_MEM_BUDGET",
+              "SORT_EXCHANGE_ENGINE", "SORT_DEVICES", "SORT_NEGOTIATE",
+              "SORT_RESTAGE", "SORT_RESTAGE_RATIO")
 
 
 def _error(msg: str) -> None:
@@ -70,42 +79,37 @@ def _invalid_file(path: str) -> int:
     return 1
 
 
-def _refuse_unported(ranks: int | None) -> None:
-    if ranks not in (None, 1):
-        raise NotPortedError(f"SORT_RANKS='{ranks}': the port sorts on one "
-                             "card; the multi-rank paths are not ported yet")
+def _refuse_unported() -> None:
     for name in _UNPORTED_KNOBS:
         if knobs.get(name):
             raise NotPortedError(f"{name}={knobs.get(name)!r}: not ported yet; "
                                  "unset it")
 
 
-def _passes_from_diffs(diffs: tuple[int, ...], digit_bits: int) -> int:
-    """LSD passes needed for per-word ``max ^ min`` diffs (msw first);
-    digit alignment restarts at every word."""
-    per_word = (32 + digit_bits - 1) // digit_bits
-    for wi, x in enumerate(diffs):
-        if x:
-            below = len(diffs) - 1 - wi
-            return min(below * per_word + math.ceil(x.bit_length() / digit_bits),
-                       per_word * len(diffs))
-    return 0
+def _mesh(ranks: int | None, dev: torch.device) -> Mesh:
+    """``SORT_RANKS`` ranks (default ``SORT_DEVICES``): round-robin over
+    the cards, or all on ``dev`` when it is the CPU."""
+    if dev.type == "cpu":
+        p = ranks or knobs.get("SORT_DEVICES") or 1
+        return make_mesh(p, devices=[dev] * p)
+    return make_mesh(ranks)
 
 
 def radix_pass_states(keys: np.ndarray, digit_bits: int | None
                       ) -> Iterator[tuple[int, np.ndarray]]:
-    """The keys after each LSD pass of a one-rank radix sort: pass k sorts
-    stably by the digit (word, k-th shift) of the reference's plan, with
-    ``digit_bits`` (auto: 16 when that needs fewer passes than 8).  Debug
-    output only; runs the plain pass on the host."""
+    """The keys after each LSD pass of the radix sort: pass k sorts stably
+    by the digit (word, k-th shift) of the reference's plan, with
+    ``digit_bits`` (auto: 16 when that needs fewer passes than 8).  Every
+    pass places each key at its global digit-stable position, so the
+    state is the same on any number of ranks.  Debug output only; runs
+    the plain pass on the host."""
     codec = codec_for(keys.dtype)
     words_np = codec.encode(np.asarray(keys).reshape(-1))
     diffs = api._word_diffs(words_np)
     if digit_bits is None:
-        digit_bits = 16 if _passes_from_diffs(diffs, 16) < _passes_from_diffs(diffs, 8) else 8
-    per_word = (32 + digit_bits - 1) // digit_bits
-    plan = [(w, p * digit_bits) for w in range(codec.n_words - 1, -1, -1)
-            for p in range(per_word)][:_passes_from_diffs(diffs, digit_bits)]
+        digit_bits = api._auto_digit_bits(diffs)
+    plan = radix_sort._plan(codec.n_words, digit_bits,
+                            api._passes_from_diffs(diffs, digit_bits))
     planes = tuple(to_device_words(w, "cpu") for w in words_np)
     for k, (widx, shift) in enumerate(plan, 1):
         planes = radix.radix_pass_plain(planes, widx, shift, digit_bits)
@@ -134,11 +138,14 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
         dtype = knobs.get("SORT_DTYPE")
         digit_bits = knobs.get("SORT_DIGIT_BITS")
         ranks = knobs.get("SORT_RANKS")
+        cap_factor = knobs.get("SORT_CAP_FACTOR")
+        oversample = knobs.get("SORT_OVERSAMPLE")
         for name in _VALIDATED:
             knobs.get(name)
-        _refuse_unported(ranks)
+        _refuse_unported()
         tracer.counters["encode_engine"] = native_encode.engine()
         dev = api.resolve_device(None, device)
+        mesh = _mesh(ranks, dev)
     except (ValueError, RuntimeError) as e:
         _error(str(e))
         return 1
@@ -161,17 +168,21 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
     if n == 0:
         return _invalid_file(path)
 
-    n_ranks = 1
-    tracer.common(f"Working 0/{n_ranks}", min_level=2)
+    n_ranks = mesh.size
+    for r in range(n_ranks):
+        tracer.common(f"Working {r}/{n_ranks}", min_level=2)
     tracer.master(f"Read file: {path}")
     tracer.master(f"File read OK, {n} numbers {keys[0]}-{keys[-1]}.")
+    for r in range(1, n_ranks):
+        tracer.slave(f"{r} Recv(size_input): {n}")
     if algo == "sample":
         print(f"Each bucket will be put {-(-n // n_ranks)} items.")
 
     start = time.perf_counter()  # after the file read
     try:
-        res = api.sort(keys, algorithm=algo, device=dev, tracer=tracer,
-                       return_result=True)
+        res = api.sort(keys, algorithm=algo, tracer=tracer, return_result=True,
+                       mesh=mesh, digit_bits=digit_bits, cap_factor=cap_factor,
+                       oversample=oversample)
         out = res.to_numpy()
     except SortIntegrityError as e:
         _error(f"sort integrity failure: {e}")
@@ -184,10 +195,17 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
     if debug > 2:
         mask = (1 << (8 * dtype.itemsize)) - 1
         if algo == "radix" and dtype.kind in "iu":
+            # rank r's block: n//P + (r < n%P) keys (the reference's
+            # block contract, whatever the padded shards hold)
+            q, rem = divmod(n, n_ranks)
             for k, state in radix_pass_states(keys, digit_bits):
-                print(f"[COMMON] 0: Main Queue Completed, LEN={n}")
-                for v in state:
-                    print(f"DUMP: LOOP {k} RADIX 0 = {int(v) & mask}")
+                off = 0
+                for r in range(n_ranks):
+                    cnt = q + (1 if r < rem else 0)
+                    print(f"[COMMON] {r}: Main Queue Completed, LEN={cnt}")
+                    for v in state[off:off + cnt]:
+                        print(f"DUMP: LOOP {k} RADIX {r} = {int(v) & mask}")
+                    off += cnt
         for i, v in enumerate(out):
             print(f"{i}|{v}" if dtype.kind == "f" else f"{i}|{int(v) & mask}")
     med = out[max(n // 2 - 1, 0)]

@@ -1,17 +1,33 @@
-"""Public sort API on one card (port of the single-device branch of
-``mpitest_tpu/models/api.py``).
+"""Public sort API (port of ``mpitest_tpu/models/api.py``).
 
-``sort(x)`` runs the reference's one-rank path (``_sort_impl``,
-``api.py:1469-1562``): encode the keys to order-preserving uint32 words,
-sort them locally, verify sortedness and the multiset fingerprint, and
-decode back to the input dtype.  A numpy array is the host path (host
-encode + fingerprint, one copy to the card); a ``torch.Tensor`` is the
-device-resident path (encode and fingerprint on its device).
+``sort(x)`` without a mesh runs the reference's one-rank path
+(``_sort_impl``, ``api.py:1469-1562``): encode the keys to
+order-preserving uint32 words, sort them locally, verify sortedness and
+the multiset fingerprint, and decode back to the input dtype.  A numpy
+array is the host path (host encode + fingerprint, one copy to the
+card); a ``torch.Tensor`` is the device-resident path (encode and
+fingerprint on its device).
 
-The call runs on ``cuda`` unless the caller passes ``device="cpu"``; with
-no device given and no CUDA available it raises.  On the CPU every
-kernel wrapper runs its plain PyTorch version, so the CPU walks the same
-routing tree as the card.
+``sort(x, mesh=make_mesh(P))`` with P > 1 runs the distributed branch
+(``api.py:1564-2028``): the keys are padded to ``P*n`` with the maximum
+key (the all-ones word for floats) and split into per-rank shards, and
+``algorithm="radix"`` (LSD radix, ``models/radix_sort.py``) or
+``"sample"`` (``models/sample_sort.py``) sorts them across the ranks.
+Capacity negotiation sizes the exchange from a count probe
+(``SORT_NEGOTIATE``), a skewed arrangement is re-staged by interleaving
+the shards (``SORT_RESTAGE``, ``SORT_RESTAGE_RATIO``), the supervisor's
+loop regrows an overflowing cap, and sample sort reroutes to radix when
+its splitters degenerate (host or device sniff, probe estimate, or a
+late cap overflow; counter ``sample_skew_fallback``).  The exchange
+engine (``SORT_EXCHANGE_ENGINE``) resolves ``auto`` to ``pallas``: the
+fused pack (K6) and the rank-to-rank all-to-all (K7); ``lax`` packs each
+plane with K5 and moves it with per-block copies.  Caps align to the
+pack's chunk (1024) as the reference's do on a TPU.
+
+The call runs on ``cuda`` unless the caller passes ``device="cpu"`` (or
+a mesh of ``cpu`` ranks); with no device given and no CUDA available it
+raises.  On the CPU every kernel wrapper runs its plain PyTorch version,
+so the CPU walks the same routing tree as the card.
 
 Engine routing copies the reference's TPU decisions: ``auto`` means the
 bitonic engine for n >= 2^13; the break-even rule (``n*10 < n_pow2*6``)
@@ -23,52 +39,88 @@ fused radix kernel (K4) and larger ones to ``lax``; host input compacts
 its pass plan from the words' ranges, device input runs the full plan,
 and 64-bit keys with n >= 2^13 keep the pair route (whose device form
 sorts a lone varying word with the bitonic engine, its host form with
-K4).
+K4).  Inside the distributed radix, ``radix_pallas`` runs pass 1 with
+K4; inside sample sort the resolved engine sorts the shards and the
+merge.
+
+Not ported here: the degradation ladder, fault hooks, plan records and
+the planner, buffer donation and streamed ingest.  A failed verification
+raises :class:`SortIntegrityError`; a kernel that fails raises.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
 import torch
 
+from mpitest_tpu_torch.models import radix_sort, sample_sort
 from mpitest_tpu_torch.models import supervisor as supervision
 from mpitest_tpu_torch.models import verify as vfy
 from mpitest_tpu_torch.models.supervisor import (  # re-exported: public errors
+    ExchangeCapExceeded,
     SortFaultError,
     SortIntegrityError,
     SortRetryExhausted,
+    SortSupervisor,
 )
-from mpitest_tpu_torch.ops import bitonic, kernels, radix
+from mpitest_tpu_torch.ops import bitonic, exchange, kernels, radix
 from mpitest_tpu_torch.ops.keys import (
     KeyCodec,
     codec_for,
     numpy_dtype,
     to_device_words,
     to_host_words,
+    unsigned_order,
 )
+from mpitest_tpu_torch.ops.pack import CHUNK
+from mpitest_tpu_torch.parallel.mesh import Mesh
+from mpitest_tpu_torch.utils import knobs
 from mpitest_tpu_torch.utils.trace import Tracer
 
 __all__ = ["DistributedSortResult", "SortFaultError", "SortIntegrityError",
            "SortRetryExhausted", "resolve_device", "sort"]
 
+Words = tuple[torch.Tensor, ...]
+
 
 @dataclass
 class DistributedSortResult:
-    """Sorted word planes on the card; decoded lazily on demand."""
+    """Sorted word planes on the card(s); decoded lazily on demand.
 
-    words: tuple[torch.Tensor, ...]
+    A one-rank result holds its planes in ``words``.  A mesh result holds
+    one word tuple per rank in ``shards`` (``words`` is then empty): the
+    radix layout is contiguous (rank r's n keys follow rank r-1's); the
+    sample layout is ragged, rank r's first ``counts[r]`` of its
+    ``shard_slots`` slots being its valid run."""
+
+    words: Words
     n_valid: int                     # real keys (excludes padding)
     dtype: np.dtype
+    counts: np.ndarray | None = None  # per-shard valid counts (ragged layouts)
+    shard_slots: int | None = None    # slots per shard for ragged layouts
+    shards: tuple[Words, ...] | None = None
+
+    def __post_init__(self) -> None:
+        if self.shards is None:
+            self.shards = (tuple(self.words),)
+
+    def _valid(self) -> list[int]:
+        if self.counts is None:
+            return [int(s[0].numel()) if s else 0 for s in self.shards]
+        return [int(c) for c in self.counts]
 
     def to_numpy(self) -> np.ndarray:
         if self.n_valid == 0:
             return np.empty(0, self.dtype)
         codec = codec_for(self.dtype)
-        return codec.decode(tuple(to_host_words(w[: self.n_valid])
-                                  for w in self.words))
+        parts = [tuple(to_host_words(w[:v]) for w in shard)
+                 for shard, v in zip(self.shards, self._valid())]
+        return codec.decode(tuple(np.concatenate([p[k] for p in parts])[: self.n_valid]
+                                  for k in range(codec.n_words)))
 
     def median_probe_raw(self) -> Any:
         """The (n/2)-th sorted element as a native-dtype scalar (exact
@@ -76,9 +128,12 @@ class DistributedSortResult:
         idx = self.n_valid // 2 - 1
         if idx < 0:
             raise ValueError("median probe undefined for < 2 keys")
+        for shard, v in zip(self.shards, self._valid()):
+            if idx < v:
+                break
+            idx -= v
         codec = codec_for(self.dtype)
-        return codec.decode(tuple(to_host_words(w[idx: idx + 1])
-                                  for w in self.words))[0]
+        return codec.decode(tuple(to_host_words(w[idx: idx + 1]) for w in shard))[0]
 
     def median_probe(self) -> int:
         """The reference's correctness probe: the (n/2)-th sorted element
@@ -229,31 +284,67 @@ def resolve_device(x: Any, device: torch.device | str | None) -> torch.device:
 
 def sort(x: Any, algorithm: str = "radix",
          device: torch.device | str | None = None,
-         tracer: Tracer | None = None, return_result: bool = False) -> Any:
-    """Sort keys on one card; returns a sorted numpy array (or the
-    device-resident :class:`DistributedSortResult`).
+         tracer: Tracer | None = None, return_result: bool = False, *,
+         mesh: Mesh | None = None, digit_bits: int | None = None,
+         cap_factor: float = 2.0, oversample: int | None = None,
+         pack: str | None = None, exchange_engine: str | None = None) -> Any:
+    """Sort keys on one card, or across the ranks of ``mesh``; returns a
+    sorted numpy array (or the device-resident
+    :class:`DistributedSortResult`).
 
     ``x`` is a host array (numpy or anything ``np.asarray`` takes) or a
-    ``torch.Tensor`` (device-resident keys; moved to ``device`` if it lies
-    elsewhere).  2-D input flattens.  Every result is verified
-    (``SORT_VERIFY``, default on); a failure raises
+    ``torch.Tensor`` (device-resident keys; moved to ``device``, or to the
+    mesh's first rank, if it lies elsewhere).  2-D input flattens.  Every
+    result is verified (``SORT_VERIFY``, default on); a failure raises
     :class:`SortIntegrityError`.  ``algorithm`` is ``"radix"`` or
-    ``"sample"``; on one card both take the same local path, as in the
-    reference."""
+    ``"sample"``; on one rank both take the same local path, as in the
+    reference.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) with more than one rank runs
+    the distributed sort; a one-rank mesh is the one-rank path on its
+    device.  ``device`` and ``mesh`` exclude each other.  The distributed
+    knobs are the reference's: ``digit_bits`` (radix digit width, default
+    auto), ``cap_factor`` (initial exchange cap in fair shares),
+    ``oversample`` (splitter samples per shard, default 2P-1), ``pack``
+    (``"pallas"``: K5, the default, or ``"xla"``: plain scatter) and
+    ``exchange_engine`` (default: the ``SORT_EXCHANGE_ENGINE`` knob)."""
     if algorithm not in ("radix", "sample"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
+    if mesh is not None and device is not None:
+        raise ValueError("pass either device or mesh, not both")
     tracer = tracer or Tracer()
-    dev = resolve_device(x, device)
     size = getattr(x, "numel", None)
     n = int(size()) if callable(size) else int(np.asarray(x).size)
+    if mesh is not None and mesh.size > 1:
+        with tracer.spans.span("sort", algorithm=algorithm, n=n,
+                               dtype=str(getattr(x, "dtype", "")) or None,
+                               ranks=mesh.size):
+            return _sort_mesh(x, algorithm, mesh, tracer, return_result,
+                              digit_bits, cap_factor, oversample, pack,
+                              exchange_engine)
+    dev = resolve_device(x, mesh.devices[0] if mesh is not None else device)
     with tracer.spans.span("sort", algorithm=algorithm, n=n,
                            dtype=str(getattr(x, "dtype", "")) or None,
                            device=str(dev)):
-        return _sort_impl(x, dev, tracer, return_result)
+        return _sort_impl(x, dev, tracer, return_result, exchange_engine)
+
+
+def _check_result(tracer: Tracer, res: DistributedSortResult,
+                  fp: vfy.Fingerprint | None) -> bool:
+    """Run the verifier on a result; True = verified."""
+    with tracer.phase("verify"):
+        sorted_ok, fp_ok = vfy.verify_result(res, fp)
+    tracer.count("verify_runs", 1)
+    tracer.spans.event("verify", ok=sorted_ok and fp_ok,
+                       sorted_ok=sorted_ok, fp_ok=fp_ok, n=res.n_valid)
+    if not (sorted_ok and fp_ok):
+        tracer.verbose(f"output verification FAILED (sorted={sorted_ok}, "
+                       f"fingerprint={fp_ok})")
+    return sorted_ok and fp_ok
 
 
 def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
-               return_result: bool) -> Any:
+               return_result: bool, exchange_engine: str | None = None) -> Any:
     """The one-rank branch of the reference's ``_sort_impl``."""
     is_device = isinstance(x, torch.Tensor)
     if is_device:
@@ -271,22 +362,12 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
         return out if not return_result else DistributedSortResult((), 0, dtype)
     verify_on = supervision.verify_enabled()
     engine = _local_engine()
-
-    def _check_result(res: DistributedSortResult,
-                      fp: vfy.Fingerprint | None) -> bool:
-        with tracer.phase("verify"):
-            sorted_ok, fp_ok = vfy.verify_result(res, fp)
-        tracer.count("verify_runs", 1)
-        tracer.spans.event("verify", ok=sorted_ok and fp_ok,
-                           sorted_ok=sorted_ok, fp_ok=fp_ok, n=N)
-        if not (sorted_ok and fp_ok):
-            tracer.verbose(f"output verification FAILED (sorted={sorted_ok}, "
-                           f"fingerprint={fp_ok})")
-        return sorted_ok and fp_ok
+    # recorded on every run, exchange or not, as the reference does
+    tracer.counters["exchange_engine"] = _resolve_exchange_engine(exchange_engine)
 
     def _finish_local(res: DistributedSortResult,
                       fp: vfy.Fingerprint | None) -> Any:
-        if verify_on and not _check_result(res, fp):
+        if verify_on and not _check_result(tracer, res, fp):
             raise SortIntegrityError(
                 "single-device sort result failed verification")
         if return_result:
@@ -336,3 +417,414 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
         with tracer.phase("sort"):
             out = kernels.local_sort(words, engine=resolved, diffs=diffs)
     return _finish_local(DistributedSortResult(out, N, dtype), fp_in)
+
+
+# ------------------------------------------------------ the distributed branch
+
+
+def _round_cap(c: int, align: int = 128) -> int:
+    """Round a cap up to a multiple of ``align`` (128 for the plain
+    scatter pack, :data:`CHUNK` for the kernel packs)."""
+    return max(align, ((c + align - 1) // align) * align)
+
+
+_PACK_IMPLS = ("xla", "pallas")
+
+
+def _no_interpreter(knob: str, raw: str) -> knobs.KnobError:
+    return knobs.KnobError(
+        f"{knob}={raw!r}: the interpreter twin has no counterpart here; use "
+        "'pallas' (the kernels on a card, their plain versions on the CPU)")
+
+
+def _resolve_pack(pack: str | None) -> str:
+    """Exchange-pack implementation of the ``lax`` engine: ``pallas`` (K5)
+    unless the caller asks for the plain scatter (``xla``) — the
+    reference's choice on a TPU."""
+    if pack is None:
+        return "pallas"
+    if pack == "pallas_interpret":
+        raise _no_interpreter("pack", pack)
+    if pack not in _PACK_IMPLS:
+        raise ValueError(f"unknown pack {pack!r}; use one of {_PACK_IMPLS}")
+    return pack
+
+
+def _cap_align(pack: str) -> int:
+    return CHUNK if pack == "pallas" else 128
+
+
+def _resolve_exchange_engine(engine: str | None) -> str:
+    """Concrete exchange engine: ``None`` reads ``SORT_EXCHANGE_ENGINE``;
+    ``auto`` is ``pallas`` (K6 + K7), as on the reference's TPU."""
+    v = engine if engine is not None else supervision.exchange_engine_knob()
+    if v == "pallas_interpret":
+        raise _no_interpreter("SORT_EXCHANGE_ENGINE", v)
+    if v == "auto":
+        return "pallas"
+    if v not in exchange.ENGINES:
+        raise ValueError(f"unknown exchange engine {v!r}; use one of "
+                         f"{('auto',) + exchange.ENGINES}")
+    return v
+
+
+def _engine_pack(pack_impl: str, engine: str) -> tuple[str, int]:
+    """(effective pack, cap alignment): the pallas engine owns its fused
+    pack (CHUNK-aligned caps); the lax engine keeps the resolved pack."""
+    if exchange.is_pallas(engine):
+        return engine, CHUNK
+    return pack_impl, _cap_align(pack_impl)
+
+
+def _passes_from_diffs(diffs: tuple[int, ...], digit_bits: int) -> int:
+    """LSD passes needed for per-word ``max ^ min`` diffs (msw first):
+    digits above the highest differing bit are skipped.  Digit alignment
+    restarts at every 32-bit word, so the count is ``per_word`` a full
+    word below the first non-constant one plus the digits covering that
+    word's differing bits."""
+    per_word = (32 + digit_bits - 1) // digit_bits
+    for wi, x in enumerate(diffs):
+        if x:
+            below = len(diffs) - 1 - wi
+            return min(below * per_word + math.ceil(x.bit_length() / digit_bits),
+                       per_word * len(diffs))
+    return 0
+
+
+def _auto_digit_bits(diffs: tuple[int, ...]) -> int:
+    """Auto digit width: 16 when it needs fewer passes than 8 (a pass
+    costs one full sort whatever its digit width)."""
+    return 16 if _passes_from_diffs(diffs, 16) < _passes_from_diffs(diffs, 8) else 8
+
+
+#: Safety margin on the sample probe's ESTIMATED per-peer counts.
+SAMPLE_NEG_MARGIN = 1.25
+
+#: Recv-memory bound of the sample exchange in fair per-peer shares;
+#: inputs needing more reroute to radix.
+SAMPLE_CAP_LIMIT_FACTOR = 8
+
+
+def _host_pad_words(codec: KeyCodec, flat: np.ndarray, dtype: np.dtype,
+                    total: int) -> tuple[int, ...] | None:
+    """Pad words for host input shorter than ``total``: the maximum real
+    key, or the all-ones word for floats (``np.max`` is NaN-poisoned);
+    None when no padding is needed."""
+    if flat.size >= total:
+        return None
+    if dtype.kind == "f":
+        return codec.max_sentinel()
+    return tuple(int(w[0]) for w in codec.encode(np.asarray([flat.max()], dtype)))
+
+
+def _shard_input(words_np: tuple[np.ndarray, ...], mesh: Mesh, n: int,
+                 pad_words: tuple[int, ...] | None = None) -> list[Words]:
+    """Host words padded to ``P*n`` and split into per-rank shards on the
+    ranks' devices."""
+    out = []
+    for r, dev in enumerate(mesh.devices):
+        shard = []
+        for k, w in enumerate(words_np):
+            piece = w[r * n: (r + 1) * n]
+            if piece.size < n:
+                piece = np.concatenate([piece, np.full(n - piece.size, pad_words[k],
+                                                       np.uint32)])
+            shard.append(to_device_words(piece, dev))
+        out.append(tuple(shard))
+    return out
+
+
+def _max_key(words: Words) -> Words:
+    """The lexicographically largest key of device words, as 1-element
+    planes (one ordered reduction)."""
+    return kernels.from_ordered_key(kernels._ordered_key(words).max().reshape(1),
+                                    len(words))
+
+
+def _device_shards(x: torch.Tensor, codec: KeyCodec, dtype: np.dtype,
+                   mesh: Mesh, n: int) -> tuple[Words, list[Words]]:
+    """Encode device keys where they lie, pad to ``P*n`` with the maximum
+    key (the all-ones word for floats) and split into per-rank shards.
+    Returns ``(unpadded words, shards)``."""
+    words = codec.encode_torch(x.reshape(-1))
+    N = words[0].numel()
+    total = mesh.size * n
+    if total > N:
+        if dtype.kind == "f":
+            pad = tuple(torch.full((1,), -1, dtype=torch.int32, device=x.device)
+                        for _ in words)
+        else:
+            pad = _max_key(words)
+        padded = tuple(torch.cat([w, p.expand(total - N)]) for w, p in zip(words, pad))
+    else:
+        padded = words
+    shards = [tuple(w[r * n: (r + 1) * n].to(dev) for w in padded)
+              for r, dev in enumerate(mesh.devices)]
+    return words, shards
+
+
+def _device_diffs(words: Words) -> tuple[int, ...]:
+    """Per-word ``max ^ min`` (unsigned) of device words."""
+    out = []
+    for w in words:
+        u = unsigned_order(w)
+        out.append((int(u.min()) ^ int(u.max())) & 0xFFFFFFFF)
+    return tuple(out)
+
+
+def _sample_skew_sniff(words_np: tuple[np.ndarray, ...], n_ranks: int) -> bool:
+    """Host skew sniff: would quantile splitters degenerate?  An evenly
+    strided ~32P-key sample, sorted, and the P-1 quantile picks the SPMD
+    program would take; two equal adjacent picks mean at least 2/P of the
+    mass sits on one key, so the sort goes to radix up front."""
+    n_total = words_np[0].size
+    s = min(n_total, max(64, 32 * n_ranks))
+    idx = np.linspace(0, n_total - 1, s).astype(np.int64)
+    order = np.lexsort(tuple(w[idx] for w in reversed(words_np)))
+    qpos = (np.arange(1, n_ranks) * s) // n_ranks
+    picks = [tuple(int(w[idx[order[q]]]) for w in words_np) for q in qpos]
+    return any(a == b for a, b in zip(picks, picks[1:]))
+
+
+def _device_skew_sniff(shards: list[Words], n_valid: int, n_ranks: int) -> bool:
+    """Device twin of :func:`_sample_skew_sniff`: the same verdict from a
+    strided sample of the global key order over ``[0, n_valid)`` (its last
+    pick is ``n_valid - 1``), gathered from the shards."""
+    n = shards[0][0].numel()
+    s = min(n_valid, max(64, 32 * n_ranks))
+    start, stride, s = sample_sort._strided_sample(n_valid, s)
+    qpos = (np.arange(1, n_ranks) * s) // n_ranks
+    if qpos.size < 2:
+        return False
+    g = start + np.arange(s, dtype=np.int64) * stride
+    dev0 = shards[0][0].device
+    picks = []
+    for k in range(len(shards[0])):
+        parts = [shards[r][k][torch.from_numpy(g[g // n == r] - r * n).to(shards[r][k].device)]
+                 for r in range(n_ranks)]
+        picks.append(torch.cat([p.to(dev0) for p in parts]))
+    q = torch.sort(kernels._ordered_key(tuple(picks))).values[torch.from_numpy(qpos).to(dev0)]
+    return bool(torch.any(q[1:] == q[:-1]))
+
+
+def _interleave(shards: list[Words], mesh: Mesh) -> list[Words]:
+    """Skew re-stage: deal the global key array round-robin over the
+    shards, ``new[j*n + i] = old[i*P + j]`` — a permutation, so the sorted
+    output and the fingerprint are unchanged, while a clustered
+    arrangement (sorted input) becomes one where every shard holds a
+    stride of the whole distribution."""
+    n, p = shards[0][0].numel(), mesh.size
+    dev0 = shards[0][0].device
+    out_planes = []
+    for k in range(len(shards[0])):
+        g = torch.cat([s[k].to(dev0) for s in shards])
+        out_planes.append(g.view(n, p).t().reshape(-1))
+    return [tuple(w[r * n: (r + 1) * n].to(dev) for w in out_planes)
+            for r, dev in enumerate(mesh.devices)]
+
+
+def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
+               return_result: bool, digit_bits: int | None, cap_factor: float,
+               oversample: int | None, pack: str | None,
+               exchange_engine: str | None) -> Any:
+    """The distributed branch of the reference's ``_sort_impl``."""
+    for dev in mesh.devices:
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"mesh rank on {dev} needs CUDA and none is available")
+    is_device = isinstance(x, torch.Tensor)
+    if is_device:
+        if x.device not in mesh.devices:
+            x = x.to(mesh.devices[0])
+        dtype = numpy_dtype(x.dtype)
+        N = int(x.numel())
+    else:
+        x = np.asarray(x)
+        dtype = np.dtype(x.dtype)
+        N = int(x.size)
+    codec = codec_for(dtype)
+    if N == 0:
+        out = np.empty(0, dtype)
+        return out if not return_result else DistributedSortResult((), 0, dtype)
+    n_ranks = mesh.size
+    n = max(1, math.ceil(N / n_ranks))
+    eng = _resolve_exchange_engine(exchange_engine)
+    tracer.counters["exchange_engine"] = eng
+    leng0 = _local_engine()
+    verify_on = supervision.verify_enabled()
+
+    words_np = None
+    dev_words: Words | None = None
+    if is_device:
+        with tracer.phase("encode"):
+            dev_words, words = _device_shards(x, codec, dtype, mesh, n)
+    else:
+        flat = x.reshape(-1)
+        with tracer.phase("encode"):
+            words_np = codec.encode(flat)
+            pad = _host_pad_words(codec, flat, dtype, n_ranks * n)
+        with tracer.phase("device_put"):
+            words = _shard_input(words_np, mesh, n, pad)
+
+    pack_impl = _resolve_pack(pack)
+    _, align = _engine_pack(pack_impl, eng)
+    sup = SortSupervisor(tracer)
+    input_fp = None
+    if verify_on:
+        with tracer.phase("verify"):
+            input_fp = (vfy.fingerprint_host(words_np) if words_np is not None
+                        else vfy.fingerprint_device(words, N))
+
+    fair = max(1, -(-n // n_ranks))
+    base_cap = _round_cap(int(n / n_ranks * cap_factor) + 1, align)
+    skew_cap = _round_cap(min(n, SAMPLE_CAP_LIMIT_FACTOR * fair), align)
+    if oversample is None:
+        oversample = max(2 * n_ranks - 1, 8)
+    oversample = min(oversample, n, 16_384)
+    negotiate = supervision.negotiate_knob() != "off"
+    restage_on = supervision.restage_knob() != "off"
+    restage_ratio = knobs.get("SORT_RESTAGE_RATIO")
+    state = {"words": words, "restaged": False, "plan": None}
+    del words
+
+    def do_restage() -> None:
+        if state["restaged"]:
+            return
+        with tracer.spans.span("restage", ranks=n_ranks, n=n):
+            state["words"] = _interleave(state["words"], mesh)
+        state["restaged"] = True
+        tracer.count("skew_restage", 1)
+        tracer.verbose("skew re-stage: interleaved shards to rebalance the exchange")
+
+    def radix_plan() -> tuple[int, int]:
+        if state["plan"] is None:
+            with tracer.phase("plan"):
+                diffs = (_word_diffs(words_np) if words_np is not None
+                         else _device_diffs(dev_words))
+                db = digit_bits if digit_bits is not None else _auto_digit_bits(diffs)
+                state["plan"] = (db, _passes_from_diffs(diffs, db))
+        return state["plan"]
+
+    def balance(cnts: np.ndarray, label: str, exact: bool, negotiated: int) -> None:
+        wpb = 4 * codec.n_words
+        send = cnts.sum(axis=1) * wpb
+        recv = cnts.sum(axis=0) * wpb
+        rmean = float(recv.mean())
+        recv_ratio = float(recv.max()) / rmean if rmean > 0 else 1.0
+        peer_ratio = float(cnts.max()) / fair
+        tracer.spans.event(
+            "exchange_balance", algorithm=label, ranks=n_ranks, exact=exact,
+            peer_max=int(cnts.max()), fair=fair, negotiated_cap=negotiated,
+            worst_cap=n, send_bytes=[int(v) for v in send],
+            recv_bytes=[int(v) for v in recv], recv_ratio=round(recv_ratio, 4),
+            peer_ratio=round(peer_ratio, 4), restaged=state["restaged"],
+            exchange_engine=eng)
+        tracer.counters["negotiated_cap"] = negotiated
+        tracer.counters["worst_cap"] = n
+        tracer.counters["exchange_balance_ratio"] = round(recv_ratio, 4)
+        tracer.counters["exchange_peer_ratio"] = round(peer_ratio, 4)
+
+    def probe(kind: str, db: int | None) -> np.ndarray:
+        with tracer.phase("plan"):
+            m = (radix_sort.radix_probe_spmd(state["words"], db, n_ranks)
+                 if kind == "radix" else
+                 sample_sort.sample_probe_spmd(state["words"], n_ranks, oversample))
+            return m.cpu().numpy()
+
+    def negotiate_counts(kind: str, db: int | None = None) -> np.ndarray:
+        """The count probe; one re-stage (and re-probe) when the per-peer
+        need crosses the re-stage ratio."""
+        cnts = probe(kind, db)
+        if (restage_on and not state["restaged"]
+                and float(cnts.max()) / fair >= restage_ratio):
+            tracer.verbose(f"{kind} probe: per-peer need {int(cnts.max())} >= "
+                           f"{restage_ratio:g}x fair share {fair}; re-staging")
+            do_restage()
+            cnts = probe(kind, db)
+        return cnts
+
+    def run_radix(cap0: int) -> DistributedSortResult:
+        db, passes = radix_plan()
+        eff_pack, eff_align = _engine_pack(pack_impl, eng)
+        leng = _resolve_local_engine(leng0, codec.n_words, n)
+        radix_leng = leng if leng == "radix_pallas" else "lax"
+        tracer.counters["local_engine"] = radix_leng
+        if negotiate and passes > 0:
+            cnts = negotiate_counts("radix", db)
+            need = _round_cap(int(cnts.max()), eff_align)
+            # pass 1's need is exact; later passes keep the cap_factor floor
+            cap0 = need if passes == 1 else max(need, cap0)
+            balance(cnts, "radix", True, cap0)
+
+        def attempt(c: int) -> tuple[object, int]:
+            with tracer.phase("sort"):
+                out, max_cnt = radix_sort.radix_sort_spmd(
+                    state["words"], codec.n_words, db, n_ranks, c, passes,
+                    pack=eff_pack, exchange_engine=eng, local_engine=radix_leng)
+                max_cnt = int(max_cnt)
+            tracer.count("exchange_bytes",
+                         passes * n_ranks * (n_ranks - 1) * c * 4 * codec.n_words)
+            return out, max_cnt
+
+        out, cap = sup.exchange_loop(
+            "radix", attempt, sup.squeeze_cap(cap0, eff_align), eff_align,
+            _round_cap, re_stage=do_restage if restage_on else None)
+        tracer.count("exchange_passes", passes)
+        tracer.counters["exchange_cap"] = cap
+        tracer.counters["digit_bits"] = db
+        return DistributedSortResult((), N, dtype, shards=tuple(out))
+
+    def reroute(why: str) -> DistributedSortResult:
+        tracer.verbose(f"sample: {why}; routing to radix (skew-immune)")
+        tracer.count("sample_skew_fallback", 1)
+        return run_radix(skew_cap)
+
+    def run_sample() -> DistributedSortResult:
+        eff_pack, eff_align = _engine_pack(pack_impl, eng)
+        if words_np is not None:
+            degenerate = _sample_skew_sniff(words_np, n_ranks)
+        else:
+            degenerate = _device_skew_sniff(state["words"], N, n_ranks)
+        if degenerate:
+            return reroute("quantile splitters degenerate (heavy duplication)")
+        cap_limit = _round_cap(SAMPLE_CAP_LIMIT_FACTOR * fair, eff_align)
+        cap_start = base_cap
+        if negotiate:
+            cnts = negotiate_counts("sample")
+            need = _round_cap(int(float(cnts.max()) * SAMPLE_NEG_MARGIN) + 1, eff_align)
+            if need > cap_limit:
+                return reroute(f"probe estimates cap {need} > O(n) bound {cap_limit}")
+            cap_start = need
+            balance(cnts, "sample", False, cap_start)
+        spmd_engine = _resolve_local_engine(leng0, codec.n_words, n)
+        tracer.counters["local_engine"] = spmd_engine
+
+        def attempt(c: int) -> tuple[object, int]:
+            with tracer.phase("sort"):
+                out, counts, max_cnt = sample_sort.sample_sort_spmd(
+                    state["words"], codec.n_words, n_ranks, c, oversample,
+                    pack=eff_pack, engine=spmd_engine, exchange_engine=eng)
+                max_cnt = int(max_cnt)
+            tracer.count("exchange_bytes",
+                         n_ranks * (n_ranks - 1) * c * 4 * codec.n_words)
+            return (out, counts), max_cnt
+
+        try:
+            (out, counts), cap = sup.exchange_loop(
+                "sample", attempt, sup.squeeze_cap(cap_start, eff_align), eff_align,
+                _round_cap, cap_limit=cap_limit,
+                re_stage=do_restage if restage_on else None)
+        except ExchangeCapExceeded as e:
+            return reroute(f"exchange needs cap {e.need} > O(n) bound {e.limit}")
+        tracer.count("exchange_passes", 1)
+        tracer.counters["exchange_cap"] = cap
+        return DistributedSortResult(
+            (), N, dtype, counts=np.asarray([int(c) for c in counts]),
+            shard_slots=n_ranks * cap, shards=tuple(out))
+
+    res = run_sample() if algorithm == "sample" else run_radix(base_cap)
+    if verify_on and not _check_result(tracer, res, input_fp):
+        raise SortIntegrityError("distributed sort result failed verification")
+    if return_result:
+        return res
+    with tracer.phase("decode"):
+        return res.to_numpy()

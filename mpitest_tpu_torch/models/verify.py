@@ -1,5 +1,7 @@
 """Always-on output verification: sortedness + multiset fingerprint
-(port of ``mpitest_tpu/models/verify.py``, contiguous layout).
+(port of ``mpitest_tpu/models/verify.py``: the contiguous layout, over
+one rank or the radix sort's per-rank shards, and the ragged layout of
+sample sort).
 
 Every ``sort()`` proves its own result:
 
@@ -109,16 +111,92 @@ def is_sorted_words(words: "tuple[torch.Tensor, ...]") -> bool:
     return bool(torch.all(lt | eq))
 
 
+def fingerprint_device(shards: "list[tuple[torch.Tensor, ...]]",
+                       n_valid: int) -> Fingerprint:
+    """Input-side fingerprint over per-rank padded shards: the first
+    ``n_valid`` keys in rank order (pads sit at the global tail)."""
+    return _fold_shards(shards, [int(s[0].numel()) for s in shards], n_valid)
+
+
+def _combine(fps: "list[Fingerprint]", count: int) -> Fingerprint:
+    n_words = len(fps[0].xors)
+    xors = [0] * n_words
+    sums = [0] * n_words
+    for fp in fps:
+        for k in range(n_words):
+            xors[k] ^= fp.xors[k]
+            sums[k] = (sums[k] + fp.sums[k]) & _U32
+    return Fingerprint(count, tuple(xors), tuple(sums))
+
+
+def _fold_shards(shards: "list[tuple[torch.Tensor, ...]]", valid: "list[int]",
+                 n_valid: int) -> Fingerprint:
+    """Fold the first ``valid[r]`` words of each shard, stopping once
+    ``n_valid`` keys (in rank order) are folded."""
+    fps, left = [], n_valid
+    for words, v in zip(shards, valid):
+        v = max(0, min(v, left))
+        fps.append(_fold(words, v))
+        left -= v
+    return _combine(fps, n_valid - left)
+
+
+def _key_at(words: "tuple[torch.Tensor, ...]", i: int) -> "tuple[int, ...]":
+    """Key ``i`` as a tuple of uint32 values, msw first (tuples compare
+    lexicographically)."""
+    return tuple(int(w[i]) & _U32 for w in words)
+
+
+def _valid_counts(res: "DistributedSortResult") -> "list[int]":
+    if res.counts is None:
+        return [int(s[0].numel()) for s in res.shards]
+    return [int(c) for c in res.counts]
+
+
+def result_fingerprint(res: "DistributedSortResult") -> Fingerprint:
+    """Fingerprint of a result's first ``n_valid`` keys in rank order
+    (pads and the ragged layout's fill words left out)."""
+    fp = _fold_shards(list(res.shards), _valid_counts(res), res.n_valid)
+    if res.counts is None:   # contiguous: the count is the caller's claim
+        fp = Fingerprint(res.n_valid, fp.xors, fp.sums)
+    return fp
+
+
+def result_sorted(res: "DistributedSortResult") -> bool:
+    """Sortedness of a result in either layout (see :func:`verify_result`)."""
+    shards = list(res.shards)
+    ok = all(is_sorted_words(s) for s in shards)
+    if res.counts is None:
+        for a, b in zip(shards, shards[1:]):
+            if a[0].numel() and b[0].numel():
+                ok = ok and not _key_at(b, 0) < _key_at(a, -1)
+        return ok
+    run_max = None
+    for words, c in zip(shards, _valid_counts(res)):
+        if c == 0:
+            continue
+        if run_max is not None and _key_at(words, 0) < run_max:
+            ok = False
+        last = _key_at(words, c - 1)
+        run_max = last if run_max is None else max(run_max, last)
+    return ok
+
+
 def verify_result(res: "DistributedSortResult",
                   input_fp: Fingerprint | None) -> tuple[bool, bool]:
-    """Verify a contiguous result: returns ``(sorted_ok, fp_ok)``.
-    ``fp_ok`` is True when no input fingerprint is available (nothing to
-    compare — sortedness still gates).  The words may carry pads (the
-    maximum key) past ``n_valid``; they extend the order and are left out
-    of the fingerprint."""
-    total = int(res.words[0].numel())
-    ok = is_sorted_words(res.words)
-    out_fp = _fold(res.words, min(res.n_valid, total))
-    out_fp = Fingerprint(res.n_valid, out_fp.xors, out_fp.sums)
+    """Verify a result: returns ``(sorted_ok, fp_ok)``.  ``fp_ok`` is True
+    when no input fingerprint is available (nothing to compare —
+    sortedness still gates).
+
+    Contiguous layout (one rank, or the radix shards in rank order): each
+    shard sorted, each of the P-1 seams in order, and the first
+    ``n_valid`` keys folded; pads (the maximum key) past them extend the
+    order.  Ragged layout (sample sort: shard r holds ``counts[r]`` valid
+    keys at the head of its slots, the maximum word after them): each
+    whole shard sorted, each nonempty shard's first key at or above the
+    running maximum of the earlier shards' last valid keys, and the valid
+    keys folded up to ``n_valid`` in rank order."""
+    ok = result_sorted(res)
+    out_fp = result_fingerprint(res)
     fp_ok = input_fp is None or out_fp == input_fp
     return ok, fp_ok

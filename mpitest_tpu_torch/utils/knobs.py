@@ -1,13 +1,14 @@
 """Env-knob registry of the port — the one place it reads the environment.
 
 A subset of the reference registry (``mpitest_tpu/utils/knobs.py``): the
-knobs the single-card sort path, the key-file CLI and its readers read,
-with the same names, defaults and message contract.  A bad value raises :class:`KnobError` (a
+knobs the sort paths, the key-file CLI and its readers read, with the
+same names, defaults and message contract.  A bad value raises :class:`KnobError` (a
 ``ValueError``) whose text names the knob and the accepted values.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -162,7 +163,7 @@ register("SORT_DTYPE", np.dtype(np.int32),
          "Key dtype for text inputs (int32/uint32/int64/uint64/f32/f64).",
          _parse_dtype)
 register("SORT_RANKS", None,
-         "Mesh size; the port runs on one card, so only 1 is accepted by the CLI.",
+         "Mesh size (ranks) of the CLI's sort; ranks share the cards round-robin.",
          _parse_positive_or_unset("SORT_RANKS", "use a positive integer"))
 register("SORT_DIGIT_BITS", None,
          "Radix digit width of the CLI's debug>2 per-pass dump; auto picks.",
@@ -180,6 +181,70 @@ register("SORT_MEM_BUDGET", 0,
          "Byte budget of the external sort (not ported: the CLI refuses a "
          "file above it).",
          _int("SORT_MEM_BUDGET", 0))
+
+EXCHANGE_ENGINES = ("auto", "lax", "pallas")
+
+
+def _parse_exchange_engine(raw: str) -> str:
+    if raw == "pallas_interpret":
+        raise KnobError(
+            f"SORT_EXCHANGE_ENGINE={raw!r}: the interpreter twin has no "
+            "counterpart here; use 'pallas' (the kernels on a card, their "
+            f"plain versions on the CPU) or one of {EXCHANGE_ENGINES}")
+    if raw not in EXCHANGE_ENGINES:
+        raise KnobError(f"SORT_EXCHANGE_ENGINE={raw!r}; use one of {EXCHANGE_ENGINES}")
+    return raw
+
+
+def _parse_devices(raw: str) -> int | None:
+    if raw == "auto":
+        return None
+    try:
+        v = int(raw)
+    except ValueError:
+        v = 0
+    if v < 1:
+        raise KnobError(f"SORT_DEVICES={raw!r}: use 'auto' or an "
+                        "integer >= 1") from None
+    return v
+
+
+def _float_above(name: str, lo: float, what: str) -> Callable[[str], float]:
+    def parse(raw: str) -> float:
+        try:
+            v = float(raw)
+        except ValueError:
+            v = lo
+        # isfinite: 'nan' passes a <= gate and 'inf' overflows int()
+        if not math.isfinite(v) or v <= lo:
+            raise KnobError(f"{name}={raw!r}: use {what}")
+        return v
+    return parse
+
+
+# The distributed sorts (models/api.py, models/supervisor.py).
+register("SORT_EXCHANGE_ENGINE", "auto",
+         "Exchange engine; auto = pallas (fused pack K6 + all-to-all K7); "
+         "lax = pack K5 + per-block copies.",
+         _parse_exchange_engine)
+register("SORT_DEVICES", None,
+         "Mesh rank count when none is passed explicitly (auto: one per card).",
+         _parse_devices)
+register("SORT_NEGOTIATE", "auto",
+         "Exchange-capacity negotiation from a count probe (auto: P>1).",
+         _enum("SORT_NEGOTIATE", ("auto", "on", "off")))
+register("SORT_RESTAGE", "auto",
+         "Skew-aware re-stage (shard interleave) on exchange imbalance.",
+         _enum("SORT_RESTAGE", ("auto", "off")))
+register("SORT_RESTAGE_RATIO", 4.0,
+         "Per-peer max/fair-share count ratio that triggers a re-stage.",
+         _float_above("SORT_RESTAGE_RATIO", 1.0, "a finite number > 1"))
+register("SORT_CAP_FACTOR", 2.0,
+         "Exchange cap as a multiple of the fair per-peer share.",
+         _float_above("SORT_CAP_FACTOR", 0.0, "a finite number > 0"))
+register("SORT_OVERSAMPLE", None,
+         "Samples per shard for sample sort's splitter selection (default 2P-1).",
+         _parse_positive_or_unset("SORT_OVERSAMPLE", "use an integer >= 1"))
 
 # Reference knobs whose subsystems are not ported: the CLI refuses to run
 # with any of them set rather than silently ignore it.

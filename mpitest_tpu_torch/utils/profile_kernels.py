@@ -12,7 +12,10 @@ Traces, with ``torch.profiler`` (CUPTI), one warm call each of:
 * K4 ``radix.fused_radix_sort`` on 2^28 one-word and 2^27 two-word
   planes (full plan: 4 and 8 passes of histogram, scan and scatter), and
   ``sort()`` of a device-resident int32 2^20 tensor under
-  ``SORT_LOCAL_ENGINE=radix_pallas``.
+  ``SORT_LOCAL_ENGINE=radix_pallas``;
+* ``sort()`` on eight ranks of the card (``make_mesh(8)``) of a
+  device-resident int32 2^28 tensor, radix and sample, with the share of
+  device time in the exchange kernels K5-K7 (``pack_rows``, ``a2a_push``).
 
 For each it prints the host wall time of the window, the device time
 summed over CUDA events, their ratio (the device-busy share; one minus it
@@ -37,7 +40,10 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def profile(label: str, fn: Callable[[], object], card: str, top: int = 10) -> None:
+def profile(label: str, fn: Callable[[], object], card: str, top: int = 10,
+            share: tuple[str, ...] = ()) -> None:
+    """Trace one warm call of ``fn``; ``share`` names kernels (by
+    substring) whose summed device time is printed as a share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -63,6 +69,10 @@ def profile(label: str, fn: Callable[[], object], card: str, top: int = 10) -> N
           f"busy share {dev_ms / wall_ms:.3f} | card {card}")
     for ms, count, name in rows[:top]:
         print(f"[profile]   {ms:9.3f} ms  {count:5d}x  {name[:110]}")
+    if share:
+        part = sum(r[0] for r in rows if any(k in r[2] for k in share))
+        print(f"[profile] {label}: {part:.3f} ms of {dev_ms:.3f} ms device time "
+              f"({part / dev_ms:.4f}) in kernels named {share} | card {card}")
 
 
 def main() -> int:
@@ -111,6 +121,14 @@ def main() -> int:
             os.environ.pop("SORT_LOCAL_ENGINE")
         else:
             os.environ["SORT_LOCAL_ENGINE"] = old
+    from mpitest_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(8)
+    x = words(1 << 28, 8)
+    for algo in ("radix", "sample"):
+        profile(f"sort(cuda int32 2^28), 8 ranks, {algo}",
+                lambda: mt.sort(x, algorithm=algo, mesh=mesh, return_result=True),
+                card, top=14, share=("pack_rows", "a2a_push"))
     return 0
 
 

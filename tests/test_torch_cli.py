@@ -1,6 +1,8 @@
 """The port's key-file CLI (``mpitest_tpu_torch/cli.py``, run with
-``device="cpu"``) against the reference's (``drivers/sort_cli.py``, run
-with ``SORT_RANKS=1``), both in process on the same files.
+``device="cpu"``) against the reference's (``drivers/sort_cli.py``), both
+in process on the same files, with ``SORT_RANKS=1`` unless a test sets
+more ranks (the reference then runs on its cpu:P mesh, the port on P
+CPU ranks).
 
 Held equal: the exit code, every stdout line but the ``[VERBOSE]`` phase
 timings, and the stderr shape — the same lines, with the
@@ -152,7 +154,7 @@ def test_knob_garbage_is_one_error_line(knob, value, int_file, capsys, monkeypat
 
 
 @pytest.mark.parametrize("env,argv_extra", [
-    ({"SORT_RANKS": "2"}, []),
+    ({"SORT_RANKS": "2"}, []),   # ported now: held against the reference
     ({"SORT_MEM_BUDGET": "100"}, []),
     ({"SORT_FAULTS": "result_swap"}, []),
     ({"SORT_METRICS": "m.jsonl"}, []),
@@ -163,6 +165,12 @@ def test_knob_garbage_is_one_error_line(knob, value, int_file, capsys, monkeypat
 def test_unported_inputs_end_with_one_error_line(env, argv_extra, int_file, capsys,
                                                  monkeypatch):
     path, _ = int_file
+    if "SORT_RANKS" in env:
+        # SORT_RANKS > 1 was refused before the distributed sort was
+        # ported; it now runs and matches the reference line for line
+        rc, _ = _check_same([path, "2"], capsys, monkeypatch, **env)
+        assert rc == 0
+        return
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     rc = cli.main(["sort_cli", path] + argv_extra, device="cpu")
@@ -171,6 +179,37 @@ def test_unported_inputs_end_with_one_error_line(env, argv_extra, int_file, caps
     lines = got.err.splitlines()
     assert len(lines) == 1 and lines[0].startswith("[ERROR] ")
     assert "not ported" in lines[0]
+
+
+@pytest.mark.parametrize("ranks", ["2", "8"])
+@pytest.mark.parametrize("algo", ["sample", "radix"])
+@pytest.mark.parametrize("debug", [None, "2", "3"])
+def test_ranks_match_reference(ranks, algo, debug, int_file, capsys, monkeypatch):
+    """P ranks: the bucket line uses P, the protocol lines name every
+    rank, the debug>2 dump labels each rank's block, and the probe is the
+    same."""
+    path, x = int_file
+    args = [path] + ([debug] if debug is not None else [])
+    rc, got = _check_same(args, capsys, monkeypatch, SORT_ALGO=algo, SORT_RANKS=ranks)
+    assert rc == 0
+    out = _stdout(got.out)
+    assert out[-1] == f"The n/2-th sorted element: {np.sort(x)[499]}"
+    if algo == "sample":
+        assert f"Each bucket will be put {-(-1000 // int(ranks))} items." in out
+    if debug is not None:
+        assert f"[COMMON] Working {int(ranks) - 1}/{ranks}" in out
+
+
+@pytest.mark.parametrize("engine", ["lax", "pallas"])
+def test_ranks_with_engine_knobs_match_reference(engine, tmp_path, capsys, monkeypatch):
+    x = np.random.default_rng(9).integers(-(2**31), 2**31 - 1, 5000, dtype=np.int64)
+    p = str(tmp_path / "k.bin")
+    kio.write_keys_binary(p, x)
+    rc, _ = _check_same([p], capsys, monkeypatch, SORT_RANKS="3", SORT_DTYPE="int64",
+                        SORT_EXCHANGE_ENGINE=engine if engine == "lax" else "auto",
+                        SORT_CAP_FACTOR="1.5", SORT_OVERSAMPLE="9",
+                        SORT_LOCAL_ENGINE="lax")
+    assert rc == 0
 
 
 def test_mem_budget_below_the_file_with_debug_runs_in_memory(int_file, capsys,

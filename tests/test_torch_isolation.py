@@ -21,7 +21,10 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|mpitest_tpu)(\.|\s|$|,
 def test_import_pulls_in_no_jax():
     code = ("import sys, mpitest_tpu_torch, mpitest_tpu_torch.ops.kernels, "
             "mpitest_tpu_torch.ops.radix, mpitest_tpu_torch.utils.io, "
-            "mpitest_tpu_torch.utils.native_encode, mpitest_tpu_torch.cli\n"
+            "mpitest_tpu_torch.utils.native_encode, mpitest_tpu_torch.cli, "
+            "mpitest_tpu_torch.ops.pack, mpitest_tpu_torch.ops.exchange, "
+            "mpitest_tpu_torch.parallel.mesh, mpitest_tpu_torch.parallel.collectives, "
+            "mpitest_tpu_torch.models.radix_sort, mpitest_tpu_torch.models.sample_sort\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mpitest_tpu' or "
             "m.startswith('mpitest_tpu.'))\n"
@@ -39,7 +42,11 @@ def test_no_source_imports_jax_or_reference():
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"mpitest_tpu_torch/ops/radix.py", "mpitest_tpu_torch/utils/io.py",
             "mpitest_tpu_torch/utils/native_encode.py",
-            "mpitest_tpu_torch/cli.py"} <= names
+            "mpitest_tpu_torch/cli.py", "mpitest_tpu_torch/ops/pack.py",
+            "mpitest_tpu_torch/ops/exchange.py", "mpitest_tpu_torch/parallel/mesh.py",
+            "mpitest_tpu_torch/parallel/collectives.py",
+            "mpitest_tpu_torch/models/radix_sort.py",
+            "mpitest_tpu_torch/models/sample_sort.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
