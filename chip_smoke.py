@@ -20,7 +20,11 @@ Phases, each failing loudly (any exception exits non-zero):
              (segment_pack) and K6 (fused_pass_pack, 1-3 planes) at P = 8
              over 2^25 - 777 keys (n not a multiple of 1024) with ragged,
              empty and overflowing (cnt > cap) segments; K7 (remote_a2a)
-             over eight [8, 2^22] send matrices.
+             over eight [8, 2^22] send matrices.  K8 (merge_order) at
+             n in {2, 3, 255, 256, 257, 1000, 4095, 4096}, 3 and 4 planes,
+             dup-heavy key words with 0xFFFFFFFF and 0x80000000, shuffled
+             positions, against its plain version and np.lexsort; n = 4097
+             must raise.
              Tolerance: exact (integer words; every byte must match).
 3. main    — three paths, each with the launch counts set to 0 just
              before it and read just after:
@@ -46,7 +50,18 @@ Phases, each failing loudly (any exception exits non-zero):
              2^27 (K2 + K3 inside), duplicate-skew (``sample_skew_fallback``
              = 1);
              (f) the CLI with ``SORT_RANKS=8`` on a 2^28 SORTBIN1 file,
-             ``sample`` and ``radix``.
+             ``sample`` and ``radix``;
+             (g) ``external_sort()`` under ``radix_pallas`` at fan-in 4
+             (K4 chunk sorts, K8 merge rounds): int32 2^24 at a 98304-byte
+             budget (2731 runs, 6 merge passes) and int64 2^22 at 196608
+             (683 runs, 5 passes); K8's launches must equal the merge
+             rounds of 2..4096 records, counted by wrapping
+             ``store.merge._order_for``;
+             (h) the CLI's external leg: a 2^25 int32 SORTBIN1 file at
+             ``SORT_MEM_BUDGET=16777216`` (``auto``, K1 chunk sorts of 2^20:
+             32 runs, 2 passes at fan-in 16; cut from 2^26, which takes more
+             than a minute on an H100) and ``SORT_RANKS=8 SORT_ALGO=radix`` on
+             a 2^24 file at 4 MiB (64 runs, K6/K7 inside).
              Every output equals its oracle (np.sort, or torch.sort on the
              card for the large rows and every mesh row; the CLI's probe
              equals the (n/2)-th element of np.sort); the ``local_engine``
@@ -61,7 +76,10 @@ Phases, each failing loudly (any exception exits non-zero):
              plain versions, their bounds and (K7) one ``copy_`` of the
              transposed [P, P, cap] view; end-to-end sort() on eight ranks
              of device-resident int32 2^28 (radix and sample) and int64
-             2^27 beside one rank.
+             2^27 beside one rank; K8 at n = 4096 with 3 and 4 planes
+             (the kernel alone, the round trip of merge_order_host, the
+             plain version, and the host np.lexsort of the same planes);
+             the wall of each external leg.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -96,6 +114,7 @@ SOURCES = {
     "segment_pack": "mpitest_tpu_torch/csrc/exchange.cu",
     "fused_pass_pack": "mpitest_tpu_torch/csrc/exchange.cu",
     "remote_a2a": "mpitest_tpu_torch/csrc/exchange.cu",
+    "merge_order": "mpitest_tpu_torch/csrc/merge.cu",
 }
 REPLACES = {
     "bitonic_u32": "mpitest_tpu/ops/bitonic.py:308,371,514,571",
@@ -105,6 +124,7 @@ REPLACES = {
     "segment_pack": "mpitest_tpu/ops/pallas_kernels.py:139",
     "fused_pass_pack": "mpitest_tpu/ops/exchange.py:159",
     "remote_a2a": "mpitest_tpu/ops/exchange.py:244",
+    "merge_order": "mpitest_tpu/ops/radix_pallas.py:296",
 }
 RANKS = 8
 #: 32-bit operations per element per K4 pass: two digit extractions
@@ -139,6 +159,8 @@ def main() -> int:
     from mpitest_tpu_torch.ops import _build, bitonic, exchange, kernels, pack, radix
     from mpitest_tpu_torch.ops.keys import codec_for, to_device_words, unsigned_order
     from mpitest_tpu_torch.parallel.mesh import make_mesh
+    from mpitest_tpu_torch.store import compress
+    from mpitest_tpu_torch.store import merge as mergelib
     from mpitest_tpu_torch.utils import io as kio
     from mpitest_tpu_torch.utils import native_encode
     from mpitest_tpu_torch.utils.trace import Tracer
@@ -184,6 +206,10 @@ def main() -> int:
     native_ok = native_encode.build()
     log(f"[build] host text parser {native_encode.LIB_PATH}: "
         f"{'built' if native_ok else 'not built: ' + str(native_encode.unavailable_reason())}"
+        f" in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    log(f"[build] spill codec {compress.lib_path()}: "
+        f"{'built' if compress.available() else 'not built: ' + str(compress.unavailable_reason())}"
         f" in {time.perf_counter() - t0:.2f} s")
     log(f"[card] {card}")
 
@@ -336,6 +362,40 @@ def main() -> int:
     k567_check("K7 P=8 [8, 2^22] per rank", exchange.remote_a2a(sends),
                exchange.remote_a2a_plain(sends))
     del sends
+
+    def merge_planes(n: int, k: int, seed: int) -> tuple:
+        g = np.random.default_rng(seed)
+        kw = [g.integers(0, 7, n).astype(np.uint32) for _ in range(k - 2)]
+        kw[0][g.random(n) < 0.1] = 0xFFFFFFFF
+        kw[-1][g.random(n) < 0.1] = 0x80000000
+        rid = g.integers(0, 4, n).astype(np.uint32)
+        pos = g.permutation(n).astype(np.uint32)
+        return tuple(kw) + (rid, pos)
+
+    def k8_check(label: str, planes: tuple) -> int:
+        got = radix.merge_order_host(planes, dev)
+        on_card = tuple(to_device_words(p, dev) for p in planes)
+        plain = radix.merge_order_plain(on_card).cpu().numpy()
+        want = np.lexsort(tuple(reversed(planes)))
+        sync()
+        err = int(np.abs(got.astype(np.int64) - plain).max())
+        if err or not np.array_equal(got, want):
+            raise AssertionError(f"K8 {label}: kernel != plain / np.lexsort "
+                                 f"(max_abs_err {err})")
+        return err
+
+    for k in (3, 4):
+        for n in (2, 3, 255, 256, 257, 1000, 4095, 4096):
+            k8_check(f"n={n} x{k}", merge_planes(n, k, 500 + n + k))
+        log(f"[kernels] K8 x{k} planes, n in 2..4096: bytes equal to plain and "
+            "np.lexsort (dup-heavy words, 0xFFFFFFFF and 0x80000000, shuffled "
+            "positions)")
+    try:
+        radix.merge_order_host(merge_planes(4097, 3, 7), dev)
+    except ValueError as e:
+        log(f"[kernels] K8 n=4097 raises: {e}")
+    else:
+        raise AssertionError("K8 n=4097 did not raise")
     for name, count in bitonic.LAUNCHES.items():
         if count <= before[name]:
             raise AssertionError(f"kernel {name} never launched in phase 2")
@@ -481,11 +541,13 @@ def main() -> int:
     cli_times = {}
 
     def run_cli(label: str, path: str, engine: str, x: np.ndarray,
-                local: str, ranks: int = 1, algo: str = "sample") -> None:
+                local: str, ranks: int = 1, algo: str = "sample",
+                extra_env: dict | None = None, counters: dict | None = None) -> None:
         out, err = io.StringIO(), io.StringIO()
         tr = Tracer()
         t = time.perf_counter()
-        with env(SORT_LOCAL_ENGINE=engine, SORT_RANKS=str(ranks), SORT_ALGO=algo), \
+        with env(SORT_LOCAL_ENGINE=engine, SORT_RANKS=str(ranks), SORT_ALGO=algo,
+                 **(extra_env or {})), \
                 contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = cli.main(["mpitest_tpu_torch.cli", path], tracer=tr)
         wall = time.perf_counter() - t
@@ -505,6 +567,9 @@ def main() -> int:
         if tr.counters.get("local_engine") != local:
             raise AssertionError(f"CLI {label}: local_engine="
                                  f"{tr.counters.get('local_engine')} != {local}")
+        for c, v in (counters or {}).items():
+            if tr.counters.get(c) != v:
+                raise AssertionError(f"CLI {label}: counter {c}={tr.counters.get(c)} != {v}")
         cli_times[label] = (float(m.group(1)), wall)
         log(f"[main] CLI {label} ({engine}, SORT_RANKS={ranks}, {algo}): exit 0, "
             "stdout equal to the reference "
@@ -629,6 +694,73 @@ def main() -> int:
             run_cli("2^28 int32 SORTBIN1 P=8 radix", f, "auto", x, "lax",
                     ranks=RANKS, algo="radix")
 
+    ext_walls: dict[str, float] = {}
+    k8_rounds = {"n": 0}
+    real_order_for = mergelib._order_for
+
+    def counting_order_for(kws, rid, pos, device=None):
+        if 1 < rid.size <= radix.MERGE_MAX_ELEMS:
+            k8_rounds["n"] += 1
+        return real_order_for(kws, rid, pos, device)
+
+    def k8_leg(label: str, x: np.ndarray, budget: int, runs: int, passes: int) -> None:
+        base = dict(bitonic.LAUNCHES)
+        k8_rounds["n"] = 0
+        mergelib._order_for = counting_order_for
+        tr = Tracer()
+        try:
+            with env(SORT_LOCAL_ENGINE="radix_pallas", SORT_MERGE_FANIN="4"), \
+                    tempfile.TemporaryDirectory() as sd:
+                t = time.perf_counter()
+                res = mt.external_sort(x, budget=budget, spill_dir=sd, tracer=tr)
+                ext_walls[label] = time.perf_counter() - t
+                if os.listdir(sd):
+                    raise AssertionError(f"{label}: spill files left: {os.listdir(sd)[:4]}")
+        finally:
+            mergelib._order_for = real_order_for
+        want = card_sort_oracle(x)()
+        if res.keys.dtype != want.dtype or not np.array_equal(
+                res.keys.view(np.uint8), want.view(np.uint8)):
+            raise AssertionError(f"{label}: output differs from torch.sort on the card")
+        if (res.runs, res.merge_passes) != (runs, passes):
+            raise AssertionError(f"{label}: {res.runs} runs, {res.merge_passes} "
+                                 f"passes != {runs}, {passes}")
+        k4 = bitonic.LAUNCHES[K4] - base[K4]
+        k8 = bitonic.LAUNCHES["merge_order"] - base["merge_order"]
+        if k4 == 0:
+            raise AssertionError(f"{label}: K4 never launched in the chunk sorts")
+        if k8 != k8_rounds["n"] or k8 == 0:
+            raise AssertionError(f"{label}: K8 launched {k8} times for "
+                                 f"{k8_rounds['n']} merge rounds of 2..4096")
+        log(f"[main] {label}: equal to torch.sort on the card, {res.runs} runs, "
+            f"{res.merge_passes} merge passes, spill ratio {res.spill_ratio:.3f}, "
+            f"K4 launches {k4}, K8 launches {k8} = rounds of 2..4096, "
+            f"wall {ext_walls[label]:.3f} s")
+
+    def external_k8_path() -> None:
+        x = int32_keys(1 << 24)
+        k8_leg("external_sort(np int32 2^24, budget 98304, fan-in 4)", x, 98304,
+               2731, 6)
+        x = rng.integers(-(2**63), 2**63 - 1, 1 << 22, dtype=np.int64)
+        k8_leg("external_sort(np int64 2^22, budget 196608, fan-in 4)", x, 196608,
+               683, 5)
+
+    def cli_external_path() -> None:
+        with tempfile.TemporaryDirectory() as tmp:
+            for log2n, budget, ranks, algo, local, runs in (
+                    (25, 1 << 24, 1, "sample", "bitonic", 32),
+                    (24, 1 << 22, RANKS, "radix", "lax", 64)):
+                x = rng.integers(-(2**31), 2**31 - 1, 1 << log2n, dtype=np.int32,
+                                 endpoint=True)
+                f = os.path.join(tmp, f"keys{log2n}.bin")
+                kio.write_keys_binary(f, x)
+                run_cli(f"external leg 2^{log2n} int32 SORTBIN1 budget {budget}", f,
+                        "auto", x, local, ranks=ranks, algo=algo,
+                        extra_env={"SORT_MEM_BUDGET": str(budget),
+                                   "SORT_SPILL_DIR": os.path.join(tmp, "spill")},
+                        counters={"external_runs": runs, "external_merge_passes": 2})
+                os.unlink(f)
+
     main_launches = run_path("the main path (sort(), auto)", (K1, K2, K3), main_path)
     radix_launches = run_path("sort() under radix_pallas", (K4,), radix_path)
     run_path("the key-file CLI", (K1, K4), cli_path)
@@ -639,10 +771,14 @@ def main() -> int:
     run_path("radix on eight ranks under radix_pallas", (K4, K6, K7), mesh_k4_path)
     run_path("sample sort on eight ranks", (K1, K2, K3, K6, K7), mesh_sample_path)
     run_path("the key-file CLI, SORT_RANKS=8", (K1, K6, K7), mesh_cli_path)
+    K8 = "merge_order"
+    k8_launches = run_path("external_sort() under radix_pallas", (K4, K8),
+                           external_k8_path)
+    run_path("the CLI's external leg", (K1, K6, K7), cli_external_path)
     path_launches = {K1: main_launches[K1], K2: main_launches[K2],
                      K3: main_launches[K3], K4: radix_launches[K4],
                      K5: lax_launches[K5], K6: mesh_launches[K6],
-                     K7: mesh_launches[K7]}
+                     K7: mesh_launches[K7], K8: k8_launches[K8]}
 
     # ---------------------------------------------------------- 4. timing
     entries = []
@@ -793,6 +929,42 @@ def main() -> int:
           RANKS * 2 * RANKS * cap * 4, 0, k7_lib,
           f"8 ranks x [8, {cap}] (8 launches)", library="copy_ of [P, P, cap]^T")
     del sends, stacked, recv_all
+
+    # K8 at the envelope: the kernel alone on staged device planes, the
+    # store's round trip (pinned H2D, launch, D2H, sync), the plain version
+    # on the card, and the host np.lexsort the round would otherwise take.
+    # Bound: max(bytes / HBM rate, n^2 * k * 4 ops / 32-bit rate), the
+    # bytes k planes in and the order out once.
+    n = radix.MERGE_MAX_ELEMS
+    for k in (3, 4):
+        planes = merge_planes(n, k, 900 + k)
+        err = k8_check(f"n={n} x{k} (timing shape)", planes)
+        on_card = tuple(to_device_words(p, dev) for p in planes)
+        stacked = torch.stack(on_card)
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+        k8_ms = timed(lambda: radix._launch_merge(dev, stacked, k, n, out), REPS)
+        trip_ms = timed(lambda: radix.merge_order_host(planes, dev), REPS)
+        plain_ms = timed(lambda: radix.merge_order_plain(on_card), REPS)
+        host = []
+        for _ in range(REPS + 1):
+            t = time.perf_counter()
+            np.lexsort(tuple(reversed(planes)))
+            host.append((time.perf_counter() - t) * 1e3)
+        lexsort_ms = statistics.median(host[1:])
+        log(f"[timing] K8 n={n} x{k}: kernel {k8_ms:.4f} ms, round trip "
+            f"(H2D + launch + D2H + sync) {trip_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"host np.lexsort {lexsort_ms:.4f} ms (host clock) | card {card}")
+        if k == 4:
+            entry(K8, k8_ms, plain_ms, err, (k + 1) * 4 * n, n * n * k * 4, None,
+                  f"n={n} x{k} planes (round trip {trip_ms:.4f} ms, host "
+                  f"np.lexsort {lexsort_ms:.4f} ms)", library="no single call")
+    for label, wall in ext_walls.items():
+        log(f"[timing] {label}: wall {wall:.3f} s (host-bound merge rounds) "
+            f"| card {card}")
+    for label, (ends, wall) in cli_times.items():
+        if label.startswith("external leg"):
+            log(f"[timing] CLI {label}: Endtime()-Starttime() = {ends:.5f} s, "
+                f"wall {wall:.3f} s | card {card}")
 
     ends, wall = cli_times["2^28 int32 SORTBIN1"]
     log(f"[timing] CLI 2^28 int32 SORTBIN1 (auto, K1): Endtime()-Starttime() = "

@@ -1,5 +1,5 @@
-"""The key-file CLI — the reference's own program contract (port of the
-in-memory leg of ``drivers/sort_cli.py``).
+"""The key-file CLI — the reference's own program contract (port of
+``drivers/sort_cli.py``: the in-memory leg and the external leg).
 
     python -m mpitest_tpu_torch.cli <file> [debug]
 
@@ -15,7 +15,8 @@ in-memory leg of ``drivers/sort_cli.py``).
   reference's block contract) and the full ``i|v`` dump, then ``The
   n/2-th sorted element: X``.
 * stderr: ``Endtime()-Starttime() = T sec``, timed from after the file
-  read to the materialized result.
+  read to the materialized result (the external leg: from before the
+  read, which it interleaves with the sort).
 * exit 3 on :class:`SortIntegrityError`, 4 on :class:`SortRetryExhausted`,
   each with one ``[ERROR]`` line; a bad knob value is one ``[ERROR]`` line
   and exit 1.
@@ -29,11 +30,16 @@ sets the mesh: P > 1 ranks run the distributed sort, round-robin over
 the cards, so all of them share the card of a one-card machine;
 ``SORT_DIGIT_BITS``, ``SORT_CAP_FACTOR`` and ``SORT_OVERSAMPLE`` reach the
 sort as in the reference.  It runs on the card unless :func:`main` is
-given ``device="cpu"`` (then P ranks on the CPU).  What the port cannot
-take yet ends with one ``[ERROR]`` line and exit 1, never a silent
-in-memory sort: a file above ``SORT_MEM_BUDGET`` (the external sort),
-``SORT_FAULTS``/``SORT_METRICS``/``SORT_TRACE``/``SORT_PROFILE``, and
-``--explain``.
+given ``device="cpu"`` (then P ranks on the CPU).
+
+With ``SORT_MEM_BUDGET`` > 0, a file larger than the budget and debug <= 0,
+the sort runs out of core (``store/external.py``): budget-sized chunks are
+sorted on the mesh and spilled to sorted runs, a streamed k-way merge
+probes the median without holding the result, and the bucket line prints
+once n is known.  Debug runs keep the in-memory path, as in the
+reference.  What the port cannot take yet ends with one ``[ERROR]`` line
+and exit 1: ``SORT_FAULTS``/``SORT_METRICS``/``SORT_TRACE``/
+``SORT_PROFILE`` and ``--explain``.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from mpitest_tpu_torch.models.supervisor import SortIntegrityError, SortRetryExh
 from mpitest_tpu_torch.ops import radix
 from mpitest_tpu_torch.ops.keys import codec_for, to_device_words, to_host_words
 from mpitest_tpu_torch.parallel.mesh import Mesh, make_mesh
+from mpitest_tpu_torch.store import external
 from mpitest_tpu_torch.utils import io as kio
 from mpitest_tpu_torch.utils import knobs, native_encode
 from mpitest_tpu_torch.utils.knobs import NotPortedError
@@ -66,8 +73,10 @@ _UNPORTED_KNOBS = ("SORT_FAULTS", "SORT_METRICS", "SORT_TRACE", "SORT_PROFILE")
 #: Knobs read later in the run, validated up front so garbage fails here.
 _VALIDATED = ("SORT_INGEST_CHUNK", "SORT_INGEST_THREADS", "SORT_NATIVE_ENCODE",
               "SORT_VERIFY", "SORT_LOCAL_ENGINE", "SORT_MEM_BUDGET",
-              "SORT_EXCHANGE_ENGINE", "SORT_DEVICES", "SORT_NEGOTIATE",
-              "SORT_RESTAGE", "SORT_RESTAGE_RATIO")
+              "SORT_SPILL_DIR", "SORT_MERGE_FANIN", "SORT_SPILL_COMPRESS",
+              "SORT_SPILL_THROTTLE_MBPS", "SORT_EXCHANGE_ENGINE",
+              "SORT_DEVICES", "SORT_NEGOTIATE", "SORT_RESTAGE",
+              "SORT_RESTAGE_RATIO")
 
 
 def _error(msg: str) -> None:
@@ -155,10 +164,7 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
     except OSError:
         return _invalid_file(path)
     if mem_budget and file_bytes > mem_budget and debug <= 0:
-        _error(f"SORT_MEM_BUDGET='{mem_budget}': '{path}' holds {file_bytes} "
-               "bytes, above the budget, and the external sort is not ported "
-               "yet; unset it or raise it")
-        return 1
+        return _external_main(path, dtype, algo, mem_budget, mesh, tracer)
 
     try:
         keys = kio.read_keys_auto(path, dtype=dtype, mmap=True)
@@ -209,6 +215,65 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
         for i, v in enumerate(out):
             print(f"{i}|{v}" if dtype.kind == "f" else f"{i}|{int(v) & mask}")
     med = out[max(n // 2 - 1, 0)]
+    if dtype.kind == "f":
+        print(f"The n/2-th sorted element: {med}")
+    else:
+        print(f"The n/2-th sorted element: {int(med)}")
+    print(f"Endtime()-Starttime() = {end - start:.5f} sec", file=sys.stderr)
+    return 0
+
+
+def _external_main(path: str, dtype: np.dtype, algo: str, mem_budget: int,
+                   mesh: Mesh, tracer: Tracer) -> int:
+    """The out-of-core leg: streamed external sort of ``path`` under
+    ``SORT_MEM_BUDGET`` — chunks spill to sorted runs, the k-way merge
+    streams past a running median probe, and the result is never
+    materialized.  Same stdout/stderr/exit contract as the in-memory leg;
+    the timer starts before the read, which is interleaved with the
+    sort."""
+    try:
+        kio.sniff_format(path)
+    except OSError:
+        return _invalid_file(path)
+    n_ranks = mesh.size
+    probe: dict = {"off": 0, "med": None, "n": 0, "announced": False}
+
+    def sink_factory(n: int):
+        # called once per merge attempt (an integrity recovery re-runs the
+        # merge): the probe restarts, so a recovered attempt never reports
+        # a median captured from the aborted stream
+        probe["off"], probe["med"], probe["n"] = 0, None, n
+        if algo == "sample" and not probe["announced"]:
+            # the reference's bucket line, printable once n is known
+            print(f"Each bucket will be put {-(-n // n_ranks)} items.")
+            probe["announced"] = True
+        med_idx = max(n // 2 - 1, 0)
+
+        def sink(k: np.ndarray, _p: object) -> None:
+            off = probe["off"]
+            if off <= med_idx < off + int(k.size):
+                probe["med"] = k[med_idx - off]
+            probe["off"] = off + int(k.size)
+
+        return sink
+
+    start = time.perf_counter()
+    try:
+        external.external_sort_file(
+            path, dtype=dtype, algorithm=algo, mesh=mesh, tracer=tracer,
+            budget=mem_budget, sink="array", sink_factory=sink_factory)
+    except SortIntegrityError as e:
+        _error(f"sort integrity failure: {e}")
+        return EXIT_INTEGRITY
+    except SortRetryExhausted as e:
+        _error(f"sort failed after retries: {e}")
+        return EXIT_RETRIES
+    except (OSError, ValueError, OverflowError):
+        return _invalid_file(path)
+    end = time.perf_counter()
+    if probe["n"] == 0:
+        return _invalid_file(path)
+    med = probe["med"]
     if dtype.kind == "f":
         print(f"The n/2-th sorted element: {med}")
     else:

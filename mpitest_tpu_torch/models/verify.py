@@ -16,6 +16,10 @@ Every ``sort()`` proves its own result:
 
 Sortedness plus fingerprint equality together imply the result is the
 sorted input.  The reductions are plain PyTorch on the words' device.
+
+The external sort's spill runs fold on the host: :func:`fingerprint_host`
+for bare keys, :func:`fingerprint_records` once a payload rides, and
+:meth:`Fingerprint.combine` joins the runs' folds.
 """
 
 from __future__ import annotations
@@ -42,6 +46,14 @@ class Fingerprint:
     xors: tuple            # per word, uint32
     sums: tuple            # per word, uint32 (wrapping)
 
+    def combine(self, other: "Fingerprint") -> "Fingerprint":
+        """The fingerprint of the union of two multisets."""
+        return Fingerprint(
+            self.count + other.count,
+            tuple((a ^ b) & _U32 for a, b in zip(self.xors, other.xors)),
+            tuple((a + b) & _U32 for a, b in zip(self.sums, other.sums)),
+        )
+
     @staticmethod
     def from_reference(fp: object) -> "Fingerprint":
         """Build from the reference package's ``Fingerprint`` (or a dict
@@ -60,6 +72,32 @@ def fingerprint_host(words: "tuple[np.ndarray, ...]") -> Fingerprint:
         tuple(int(np.bitwise_xor.reduce(w)) if w.size else 0 for w in words),
         tuple(int(w.sum(dtype=np.uint64)) & _U32 for w in words),
     )
+
+
+def _mix_mult(i: int) -> np.uint32:
+    """Odd multiplier of word position ``i`` in :func:`record_mix` (odd, so
+    a bijection on uint32; distinct per position)."""
+    return np.uint32((0x9E3779B1 * (2 * i + 3)) & _U32 | 1)
+
+
+def record_mix(words: "tuple[np.ndarray, ...]") -> np.ndarray:
+    """Per-record binding word over a record's key and payload words: the
+    XOR of each word scaled by its position's multiplier.  The per-word
+    folds cannot see a payload gathered against the wrong key; the
+    multiset of this word can."""
+    mix = np.zeros(words[0].shape, np.uint32)
+    for i, w in enumerate(words):
+        mix ^= np.asarray(w, np.uint32) * _mix_mult(i)
+    return mix
+
+
+def fingerprint_records(key_words: "tuple[np.ndarray, ...]",
+                        payload_words: "tuple[np.ndarray, ...]",
+                        ) -> Fingerprint:
+    """Fingerprint of key+payload records: the per-word fold over every
+    key and payload word plus :func:`record_mix` as one more word."""
+    words = tuple(key_words) + tuple(payload_words)
+    return fingerprint_host(words + (record_mix(words),))
 
 
 def _xor_reduce(w: torch.Tensor) -> int:

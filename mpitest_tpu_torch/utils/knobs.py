@@ -1,9 +1,10 @@
 """Env-knob registry of the port — the one place it reads the environment.
 
 A subset of the reference registry (``mpitest_tpu/utils/knobs.py``): the
-knobs the sort paths, the key-file CLI and its readers read, with the
-same names, defaults and message contract.  A bad value raises :class:`KnobError` (a
-``ValueError``) whose text names the knob and the accepted values.
+knobs the sort paths, the external sort, the key-file CLI and its readers
+read, with the same names, defaults and message contract.  A bad value
+raises :class:`KnobError` (a ``ValueError``) whose text names the knob and
+the accepted values.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ class KnobError(ValueError):
 
 
 class NotPortedError(KnobError):
-    """A knob named a reference engine whose kernel this package does not
+    """A knob or argument named a reference feature this package does not
     carry yet."""
 
 
@@ -90,6 +91,18 @@ def _int(name: str, lo: int) -> Callable[[str], int]:
             v = lo - 1
         if v < lo:
             raise KnobError(f"{name}={raw!r}: use an integer >= {lo}")
+        return v
+    return parse
+
+
+def _float_at_least(name: str, lo: float) -> Callable[[str], float]:
+    def parse(raw: str) -> float:
+        try:
+            v = float(raw)
+        except ValueError:
+            v = math.nan
+        if not math.isfinite(v) or v < lo:
+            raise KnobError(f"{name}={raw!r}: use a finite number >= {lo:g}")
         return v
     return parse
 
@@ -178,9 +191,34 @@ register("SORT_INGEST_THREADS", 2,
          "Text-parse worker threads.",
          _int("SORT_INGEST_THREADS", 1))
 register("SORT_MEM_BUDGET", 0,
-         "Byte budget of the external sort (not ported: the CLI refuses a "
-         "file above it).",
+         "Byte budget the external sort partitions against; the CLI sorts a "
+         "file above it out of core (0 = unlimited).",
          _int("SORT_MEM_BUDGET", 0))
+
+# The out-of-core external sort (store/).
+register("SORT_SPILL_DIR", None,
+         "Directory spill runs are staged in (default: a per-process tmp dir).",
+         _passthrough)
+register("SORT_MERGE_FANIN", 16,
+         "Maximum runs merged per k-way merge pass; more runs merge in "
+         "several passes through intermediate runs.",
+         _int("SORT_MERGE_FANIN", 2))
+register("SORT_SPILL_COMPRESS", "auto",
+         "SORTRUN2 compression of spill runs: auto = when the native codec "
+         "loads, on = always (numpy codec without it), off = raw runs.",
+         _enum("SORT_SPILL_COMPRESS", ("auto", "on", "off")))
+register("SORT_SPILL_THROTTLE_MBPS", 0.0,
+         "Simulated spill-disk bandwidth cap in MB/s, shared by every spill "
+         "reader and writer of the process (0 = unthrottled).",
+         _float_at_least("SORT_SPILL_THROTTLE_MBPS", 0.0))
+register("SORT_RESUME", "auto",
+         "Crash resume of dataset-keyed external sorts from their journaled "
+         "manifest (auto) or neither journal nor resume (off).",
+         _enum("SORT_RESUME", ("auto", "off")))
+register("SORT_SPILL_GC_AGE_S", 3600,
+         "Minimum age in seconds before the startup GC reclaims an orphaned "
+         "spill file that no live manifest names.",
+         _int("SORT_SPILL_GC_AGE_S", 0))
 
 EXCHANGE_ENGINES = ("auto", "lax", "pallas")
 

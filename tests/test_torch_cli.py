@@ -6,8 +6,9 @@ CPU ranks).
 
 Held equal: the exit code, every stdout line but the ``[VERBOSE]`` phase
 timings, and the stderr shape — the same lines, with the
-``Endtime()-Starttime()`` value aside.  What the port cannot take yet
-ends with one ``[ERROR]`` line and a nonzero exit.
+``Endtime()-Starttime()`` value aside.  A file above ``SORT_MEM_BUDGET``
+takes the external leg in both.  What the port cannot take yet ends with
+one ``[ERROR]`` line and a nonzero exit.
 """
 
 from __future__ import annotations
@@ -171,6 +172,12 @@ def test_unported_inputs_end_with_one_error_line(env, argv_extra, int_file, caps
         rc, _ = _check_same([path, "2"], capsys, monkeypatch, **env)
         assert rc == 0
         return
+    if "SORT_MEM_BUDGET" in env:
+        # a file above the budget was refused before the external sort was
+        # ported; it now takes the external leg, line for line
+        rc, _ = _check_same([path], capsys, monkeypatch, **env)
+        assert rc == 0
+        return
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     rc = cli.main(["sort_cli", path] + argv_extra, device="cpu")
@@ -210,6 +217,39 @@ def test_ranks_with_engine_knobs_match_reference(engine, tmp_path, capsys, monke
                         SORT_CAP_FACTOR="1.5", SORT_OVERSAMPLE="9",
                         SORT_LOCAL_ENGINE="lax")
     assert rc == 0
+
+
+@pytest.mark.parametrize("ranks", ["1", "2"])
+@pytest.mark.parametrize("algo", ["sample", "radix"])
+def test_external_leg_matches_reference(ranks, algo, tmp_path, capsys, monkeypatch):
+    """A SORTBIN1 file of 4000 keys at a 4096-byte budget: four runs of 1024
+    keys sorted on P ranks, merged in two passes at fan-in 2; the bucket
+    line, the probe and the timing line as the reference prints them."""
+    x = np.random.default_rng(11).integers(-(2**31), 2**31 - 1, 4000, dtype=np.int32)
+    p = str(tmp_path / "k.bin")
+    kio.write_keys_binary(p, x)
+    rc, got = _check_same([p], capsys, monkeypatch, SORT_ALGO=algo, SORT_RANKS=ranks,
+                          SORT_MEM_BUDGET="4096", SORT_MERGE_FANIN="2",
+                          SORT_SPILL_DIR=str(tmp_path / "spill"),
+                          SORT_SPILL_COMPRESS="on")
+    assert rc == 0
+    out = _stdout(got.out)
+    assert out[-1] == f"The n/2-th sorted element: {np.sort(x)[1999]}"
+    assert (f"Each bucket will be put {-(-4000 // int(ranks))} items." in out) == \
+        (algo == "sample")
+    tr = Tracer()
+    assert cli.main(["sort_cli", p], device="cpu", tracer=tr) == 0
+    capsys.readouterr()
+    assert (tr.counters["external_runs"], tr.counters["external_merge_passes"]) == (4, 2)
+    assert os.listdir(tmp_path / "spill") == []
+
+
+def test_external_leg_bad_file_matches_reference(tmp_path, capsys, monkeypatch):
+    p = tmp_path / "k.txt"
+    p.write_text("1 2 zz 4\n" * 100)
+    rc, got = _check_same([str(p)], capsys, monkeypatch, SORT_MEM_BUDGET="16")
+    assert rc == 1
+    assert got.err == f"sort(): '{p}' is not a valid file for read.\n"
 
 
 def test_mem_budget_below_the_file_with_debug_runs_in_memory(int_file, capsys,

@@ -1,6 +1,7 @@
-"""The port stands alone: importing it pulls in neither ``jax`` nor the
-reference package, no source file of it (nor ``chip_smoke.py``) imports
-them, and ``sort()`` never falls back to the CPU on its own."""
+"""The port stands alone: importing it (the store included) pulls in
+neither ``jax`` nor the reference package, no source file of it (nor
+``chip_smoke.py``) imports them, and ``sort()`` never falls back to the
+CPU on its own."""
 
 from __future__ import annotations
 
@@ -24,7 +25,12 @@ def test_import_pulls_in_no_jax():
             "mpitest_tpu_torch.utils.native_encode, mpitest_tpu_torch.cli, "
             "mpitest_tpu_torch.ops.pack, mpitest_tpu_torch.ops.exchange, "
             "mpitest_tpu_torch.parallel.mesh, mpitest_tpu_torch.parallel.collectives, "
-            "mpitest_tpu_torch.models.radix_sort, mpitest_tpu_torch.models.sample_sort\n"
+            "mpitest_tpu_torch.models.radix_sort, mpitest_tpu_torch.models.sample_sort, "
+            "mpitest_tpu_torch.store.external, mpitest_tpu_torch.store.merge, "
+            "mpitest_tpu_torch.store.runs, mpitest_tpu_torch.store.compress, "
+            "mpitest_tpu_torch.store.aio, mpitest_tpu_torch.store.manifest, "
+            "mpitest_tpu_torch.models.records, mpitest_tpu_torch.models.segmented\n"
+            "mpitest_tpu_torch.external_sort\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mpitest_tpu' or "
             "m.startswith('mpitest_tpu.'))\n"
@@ -46,7 +52,12 @@ def test_no_source_imports_jax_or_reference():
             "mpitest_tpu_torch/ops/exchange.py", "mpitest_tpu_torch/parallel/mesh.py",
             "mpitest_tpu_torch/parallel/collectives.py",
             "mpitest_tpu_torch/models/radix_sort.py",
-            "mpitest_tpu_torch/models/sample_sort.py"} <= names
+            "mpitest_tpu_torch/models/sample_sort.py",
+            "mpitest_tpu_torch/store/__init__.py", "mpitest_tpu_torch/store/external.py",
+            "mpitest_tpu_torch/store/merge.py", "mpitest_tpu_torch/store/runs.py",
+            "mpitest_tpu_torch/store/compress.py", "mpitest_tpu_torch/store/aio.py",
+            "mpitest_tpu_torch/store/manifest.py", "mpitest_tpu_torch/models/records.py",
+            "mpitest_tpu_torch/models/segmented.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
