@@ -11,7 +11,8 @@ Phases, each failing loudly (any exception exits non-zero):
              build time and the card's name and power limit.
 2. kernels — each CUDA kernel against its plain PyTorch version on the
              card: K1 (bitonic_u32) at 2^20 and 2^24 over adversarial
-             patterns, K2 (bitonic_pairs_u32) at 2^20, K3
+             patterns (6 and 10 merge rounds), K2 (bitonic_pairs_u32) at
+             2^20, keys and payload byte-equal, K3
              (fix_runs_pairs) + boundary strips at 2^20 with planted runs,
              K4 (radix_pass) at 2^20: one, two and four planes, full and
              compacted plans, the payload shape ``(digit,) + 2 words``
@@ -68,7 +69,8 @@ Phases, each failing loudly (any exception exits non-zero):
              counter, the kernel launch counts and K4's pass counts are
              asserted.
 4. timing  — CUDA events, warm median: each kernel at the main path's
-             shape beside its plain version, its bound and torch.sort (K4
+             shape beside its plain version, its bound and torch.sort (K1
+             and K2 with their pass counts and design floors; K4
              at 2^28 one word with K4 byte-equal to plain there, 2^27 two
              words and 2^20); end-to-end sort() of the device-resident
              inputs; the CLI's own timing line and wall time on the 2^28
@@ -117,8 +119,8 @@ SOURCES = {
     "merge_order": "mpitest_tpu_torch/csrc/merge.cu",
 }
 REPLACES = {
-    "bitonic_u32": "mpitest_tpu/ops/bitonic.py:308,371,514,571",
-    "bitonic_pairs_u32": "mpitest_tpu/ops/bitonic.py:703,758,970,1038",
+    "bitonic_u32": "mpitest_tpu/ops/bitonic.py:308,351,371,514,571",
+    "bitonic_pairs_u32": "mpitest_tpu/ops/bitonic.py:703,737,758,970,1038",
     "fix_runs_pairs": "mpitest_tpu/ops/bitonic.py:1101",
     "radix_pass": "mpitest_tpu/ops/radix_pallas.py:186",
     "segment_pack": "mpitest_tpu/ops/pallas_kernels.py:139",
@@ -239,7 +241,7 @@ def main() -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"K1 bitonic_sort_u32 2^{n_log2}-3001 wrong")
         log(f"[kernels] K1 2^{n_log2}: {len(patterns)} patterns + padded "
-            "n equal to plain (bytes)")
+            f"n equal to plain (bytes), {bitonic.merge_rounds(n)} merge rounds")
 
     n = 1 << 20
     k = words(n, 21) & 0xFFF                     # equal-key runs of ~256
@@ -255,9 +257,12 @@ def main() -> int:
 
     if not torch.equal(pair_multiset(gk, gp), pair_multiset(wk, wp)):
         raise AssertionError("K2 2^20: payload multiset per key run differs")
-    k2_payload_bytes_equal = bool(torch.equal(gp, wp))
-    log(f"[kernels] K2 2^20: keys equal, payload multiset per run equal, "
-        f"payload byte-equal={k2_payload_bytes_equal}")
+    # K2 keeps the network's comparators, so the payload order inside each
+    # equal-key run is the plain version's to the byte
+    if not torch.equal(gp, wp):
+        raise AssertionError("K2 2^20: payload bytes differ from plain")
+    log(f"[kernels] K2 2^20: keys and payload bytes equal to plain, passes "
+        f"(tile sorts, staged, tails) = {bitonic.network_plan(n)}")
 
     rng = np.random.default_rng(23)
     for max_run, b_log2 in ((16, 16), (24, 16), (16, 10)):
@@ -803,6 +808,15 @@ def main() -> int:
             f"{'-' if library_ms is None else f'{library_ms:.3f} ms'} "
             f"| card {card}")
 
+    # K1, K2: bound_ms is the function's floor, each plane read once and
+    # written once, against n log2 n compares; the design floor of the
+    # schedule (its passes through HBM, ops/bitonic.py) is logged beside it.
+    def design_floor(label: str, passes: int, pass_bytes: float, ms: float) -> None:
+        floor = passes * pass_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"[timing] {label}: {passes} passes x {pass_bytes / 2**30:.0f} GiB, "
+            f"design floor {floor:.3f} ms at 3.35 TB/s, measured {ms:.3f} ms = "
+            f"{ms / passes:.3f} ms a pass | card {card}")
+
     n = 1 << 28
     t = 28
     x = words(n, 281)
@@ -815,9 +829,10 @@ def main() -> int:
     k1_ms = timed(lambda: bitonic.sort_padded(x, n, bitonic.BLOCK_LOG2), REPS)
     k1_plain = timed(lambda: bitonic.sort_padded_plain(x), PLAIN_REPS)
     k1_lib = timed(lambda: torch.sort(x), REPS)
-    cmp_k1 = (n // 2) * t * (t + 1) // 2        # compare-exchanges of the network
-    entry("bitonic_u32", k1_ms, k1_plain, err, 2 * 4 * n, 2 * cmp_k1, k1_lib,
+    entry("bitonic_u32", k1_ms, k1_plain, err, 2 * 4 * n, n * t, k1_lib,
           "2^28 int32")
+    design_floor(f"K1 2^28: 1 tile sort + {bitonic.merge_rounds(n)} merge rounds",
+                 1 + bitonic.merge_rounds(n), 2 * 4 * n, k1_ms)
     del x
 
     n = 1 << 27
@@ -834,9 +849,11 @@ def main() -> int:
                   REPS)
     k2_plain = timed(lambda: bitonic.sort_pairs_padded_plain(hi, lo), PLAIN_REPS)
     k2_lib = timed(lambda: torch.sort(hi), REPS)  # keys + permutation, one call
-    cmp_k2 = (n // 2) * t * (t + 1) // 2
-    entry("bitonic_pairs_u32", k2_ms, k2_plain, err, 4 * 4 * n, 4 * cmp_k2,
+    entry("bitonic_pairs_u32", k2_ms, k2_plain, err, 4 * 4 * n, n * t,
           k2_lib, "2^27 pairs")
+    tiles, staged, tails = bitonic.network_plan(n)
+    design_floor(f"K2 2^27: {tiles} tile sort + {staged} staged + {tails} tail passes",
+                 tiles + staged + tails, 4 * 4 * n, k2_ms)
 
     # K3 on the pair network's own output: hi sorted, lo permuted in runs
     g3 = bitonic.fix_runs_pairs(gk, gp, 16, bitonic.PAIR_BLOCK_LOG2)

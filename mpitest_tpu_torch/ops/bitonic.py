@@ -3,12 +3,19 @@
 
 Three CUDA kernels in ``csrc/bitonic.cu`` carry it:
 
-* **K1** ``bitonic_u32`` behind :func:`sort_padded` — the standard bitonic
-  network over a padded power-of-two array of uint32 words;
-* **K2** ``bitonic_pairs_u32`` behind :func:`sort_pairs_padded` — the same
-  network on (key, payload) pairs; the payload follows the key result
-  (``out_k == k``: a position keeps its payload iff its key did not
-  change, so ties keep their own);
+* **K1** ``bitonic_u32`` behind :func:`sort_padded` — an ascending sort of
+  a padded power-of-two plane of uint32 words.  A one-word sort has one
+  output, so K1 is a tile sort of ``2^KEY_TILE_LOG2`` keys followed by
+  :func:`merge_rounds` merge-path rounds, each one read and one write of
+  the plane, ping-ponging through a scratch plane the wrapper allocates;
+* **K2** ``bitonic_pairs_u32`` behind :func:`sort_pairs_padded` — the
+  standard bitonic network on (key, payload) pairs; the payload follows
+  the key result (``out_k == k``: a position keeps its payload iff its key
+  did not change, so ties keep their own).  The payload order inside an
+  equal-key run is the network's own permutation, which the 64-bit
+  caller's residual flag reads, so K2 keeps every comparator and changes
+  only the schedule (:func:`network_plan`: one tile sort, staged passes of
+  up to ``STAGE_LAYERS`` layers, one tail pass per stage);
 * **K3** ``fix_runs_pairs`` behind :func:`fix_runs_pairs` — segment-masked
   odd-even transposition of the payload within runs of equal key, per
   block.
@@ -18,13 +25,14 @@ Words are ``torch.int32`` tensors carrying raw uint32 bits (see
 PyTorch version of its kernel when the tensor lies on the CPU, launches
 the kernel on the current CUDA stream when it lies on a card, and raises
 on anything else.  There is no fallback from the kernel to the plain
-version.  Each kernel launch adds one to :data:`LAUNCHES`.
+version.  Each kernel entry call adds one to :data:`LAUNCHES`, however
+many CUDA launches it makes.
 
 The TPU schedule of the reference (lane/sublane rolls, flip bookkeeping,
-rotation relayout, 2^16-element VMEM blocks) is not ported; the logical
-network, and so the output, is the same.  ``b_log2`` is kept in the
+rotation relayout, 2^16-element VMEM blocks) is not ported; K2's logical
+network, and so every output, is the same.  ``b_log2`` is kept in the
 signatures: it sets the blocking of :func:`fix_runs_pairs`, whose result
-depends on it, and is accepted unused by the two network wrappers.
+depends on it, and is accepted unused by the two sort wrappers.
 """
 
 from __future__ import annotations
@@ -43,6 +51,19 @@ MIN_SORT_LOG2 = 13
 #: log2 of the reference pair-engine block (also K3's ``bsz``).
 PAIR_BLOCK_LOG2 = 16
 
+# The schedule constants of csrc/bitonic.cu (kPairTileLog2, kStageLayers,
+# kKeyTileLog2, kMergeWinLog2 and the warp widths 5 + log2(regs)).
+#: K2 tile: pairs sorted in shared memory by one block.
+PAIR_TILE_LOG2 = 13
+#: K2 layers one staged pass retires.
+STAGE_LAYERS = 8
+#: K1 tile: keys a block sorts before the merge rounds.
+KEY_TILE_LOG2 = 14
+#: K1 merge-round output window (keys per block).
+MERGE_WINDOW_LOG2 = 13
+_PAIR_WARP_LOG2 = 9    # 32 lanes x 16 pairs: the least K2 tile
+_KEY_WARP_LOG2 = 10    # 32 lanes x 32 keys: the least K1 tile
+
 #: Kernel launches per entry (the package-wide table of ``ops/_build.py``).
 LAUNCHES = _build.LAUNCHES
 LAUNCHES.update({"bitonic_u32": 0, "bitonic_pairs_u32": 0, "fix_runs_pairs": 0})
@@ -50,11 +71,44 @@ launches = _build.launches
 reset_launches = _build.reset_launches
 
 
+# ----------------------------------------------------------- schedule plan
+
+
+def _log2_exact(n: int) -> int:
+    if n < 1 or n & (n - 1):
+        raise ValueError(f"length {n} is not a power of two")
+    return n.bit_length() - 1
+
+
+def network_plan(n: int) -> tuple[int, int, int]:
+    """K2's passes through global memory for ``n`` pairs, as
+    ``bitonic_pairs_u32`` launches them: ``(tile sorts, staged passes,
+    tail passes)``.  Stage m above the tile takes ceil((m - tl) /
+    STAGE_LAYERS) staged passes and one tail pass."""
+    t = _log2_exact(n)
+    tl = max(min(t, PAIR_TILE_LOG2), _PAIR_WARP_LOG2)
+    staged = sum(-(-(m - tl) // STAGE_LAYERS) for m in range(tl + 1, t + 1))
+    return 1, staged, max(t - tl, 0)
+
+
+def merge_rounds(n: int) -> int:
+    """K1's merge rounds after its tile sort of ``n`` keys (each one read
+    and one write of the plane)."""
+    t = _log2_exact(n)
+    return max(t - max(min(t, KEY_TILE_LOG2), _KEY_WARP_LOG2), 0)
+
+
+def scratch_words(n: int) -> int:
+    """Words of scratch K1 needs for ``n`` keys: a second plane and one
+    merge-path start per output window, or nothing without merge rounds."""
+    return n + (n >> MERGE_WINDOW_LOG2) if merge_rounds(n) else 0
+
+
 # ------------------------------------------------------------ kernel glue
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "bitonic_u32": (_P, _P, ctypes.c_longlong, _P),
+    "bitonic_u32": (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
     "bitonic_pairs_u32": (_P, _P, _P, _P, ctypes.c_longlong, _P),
     "fix_runs_pairs": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_longlong, _P),
@@ -168,22 +222,29 @@ def fix_runs_pairs_plain(hi: torch.Tensor, lo: torch.Tensor, passes: int,
 
 
 def sort_padded(x: torch.Tensor, n_pow2: int, b_log2: int) -> torch.Tensor:
-    """Bitonic-sort a flat power-of-two word plane of ``n_pow2`` uint32
-    bit patterns ascending (K1).  Returns a new tensor."""
+    """Sort a flat power-of-two word plane of ``n_pow2`` uint32 bit
+    patterns ascending (K1: tile sort, then :func:`merge_rounds` merge-path
+    rounds through a scratch plane of :func:`scratch_words`).  ``x`` is not
+    written.  Returns a new tensor."""
     if not _on_card(x, n=n_pow2):
         return sort_padded_plain(x)
     out = torch.empty_like(x)
-    _launch("bitonic_u32", x.device, x.data_ptr(), out.data_ptr(), n_pow2)
+    words = scratch_words(n_pow2)
+    scratch = torch.empty(words, dtype=torch.int32, device=x.device) if words else None
+    _launch("bitonic_u32", x.device, x.data_ptr(), out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), words, n_pow2)
     return out
 
 
 def sort_pairs_padded(k: torch.Tensor, p: torch.Tensor, n_pow2: int,
                       b_log2: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Bitonic-sort ``(k, p)`` pairs by the key plane only (K2).
+    """Bitonic-sort ``(k, p)`` pairs by the key plane only (K2, in the
+    passes of :func:`network_plan`).
 
     Equal keys keep their own payloads at every comparator, so within an
-    equal-key run the payload order is a deterministic permutation; the
-    64-bit caller fixes runs afterwards.  Returns new tensors."""
+    equal-key run the payload order is the network's deterministic
+    permutation, byte-equal to :func:`sort_pairs_padded_plain`; the 64-bit
+    caller fixes runs afterwards.  Returns new tensors."""
     if not _on_card(k, p, n=n_pow2):
         return sort_pairs_padded_plain(k, p)
     ko, po = torch.empty_like(k), torch.empty_like(p)

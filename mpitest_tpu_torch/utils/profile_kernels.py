@@ -19,7 +19,9 @@ Traces, with ``torch.profiler`` (CUPTI), one warm call each of:
 
 For each it prints the host wall time of the window, the device time
 summed over CUDA events, their ratio (the device-busy share; one minus it
-is the idle share), and the device time per kernel name.  Every line
+is the idle share), the device time per kernel name, and for the bitonic
+paths the time and launches of each phase: K1's tile sort and merge
+rounds, K2's tile sort, staged passes and tail passes.  Every line
 carries the card's name and power limit.  Needs a CUDA device.
 """
 
@@ -40,10 +42,21 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: The bitonic kernels by phase (``csrc/bitonic.cu``): K1's tile sort and
+#: merge rounds, K2's tile sort, staged passes and tail passes.
+K1_PHASES = {"K1 tile sort": ("k1_tile_sort",),
+             "K1 merge rounds": ("k1_merge_partition", "k1_merge_round")}
+K2_PHASES = {"K2 tile sort": ("k2_tile_sort",), "K2 staged passes": ("k2_staged_pass",),
+             "K2 tail passes": ("k2_tail_pass",), "K3": ("fix_runs_kernel",)}
+
+
 def profile(label: str, fn: Callable[[], object], card: str, top: int = 10,
-            share: tuple[str, ...] = ()) -> None:
+            share: tuple[str, ...] = (),
+            groups: dict[str, tuple[str, ...]] | None = None) -> None:
     """Trace one warm call of ``fn``; ``share`` names kernels (by
-    substring) whose summed device time is printed as a share."""
+    substring) whose summed device time is printed as a share, and
+    ``groups`` names phases whose kernels' device time and launches are
+    printed each."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -69,6 +82,10 @@ def profile(label: str, fn: Callable[[], object], card: str, top: int = 10,
           f"busy share {dev_ms / wall_ms:.3f} | card {card}")
     for ms, count, name in rows[:top]:
         print(f"[profile]   {ms:9.3f} ms  {count:5d}x  {name[:110]}")
+    for phase, names in (groups or {}).items():
+        hit = [r for r in rows if any(k in r[2] for k in names)]
+        print(f"[profile] {label}: {phase} {sum(r[0] for r in hit):.3f} ms in "
+              f"{sum(r[1] for r in hit)} launches | card {card}")
     if share:
         part = sum(r[0] for r in rows if any(k in r[2] for k in share))
         print(f"[profile] {label}: {part:.3f} ms of {dev_ms:.3f} ms device time "
@@ -94,14 +111,17 @@ def main() -> int:
 
     x = words(1 << 28, 1)
     profile("K1 sort_padded 2^28", lambda: bitonic.sort_padded(
-        x, 1 << 28, bitonic.BLOCK_LOG2), card)
-    profile("sort(cuda int32 2^28)", lambda: mt.sort(x, return_result=True), card)
+        x, 1 << 28, bitonic.BLOCK_LOG2), card, groups=K1_PHASES)
+    profile("sort(cuda int32 2^28)", lambda: mt.sort(x, return_result=True), card,
+            groups=K1_PHASES)
     del x
     hi, lo = words(1 << 27, 2), words(1 << 27, 3)
-    profile("pair engine 2^27", lambda: kernels.sort_two_words_bitonic(hi, lo), card)
+    profile("pair engine 2^27", lambda: kernels.sort_two_words_bitonic(hi, lo), card,
+            groups=K2_PHASES)
     x64 = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
     del hi, lo
-    profile("sort(cuda int64 2^27)", lambda: mt.sort(x64, return_result=True), card)
+    profile("sort(cuda int64 2^27)", lambda: mt.sort(x64, return_result=True), card,
+            groups=K2_PHASES)
     del x64
     x = words(1 << 28, 4)
     profile("K4 fused_radix_sort 2^28 x1", lambda: radix.fused_radix_sort((x,)), card)
@@ -128,7 +148,7 @@ def main() -> int:
     for algo in ("radix", "sample"):
         profile(f"sort(cuda int32 2^28), 8 ranks, {algo}",
                 lambda: mt.sort(x, algorithm=algo, mesh=mesh, return_result=True),
-                card, top=14, share=("pack_rows", "a2a_push"))
+                card, top=14, share=("pack_rows", "a2a_push"), groups=K1_PHASES)
     return 0
 
 

@@ -16,6 +16,9 @@ each kernel against its plain version there and skip here.
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -232,6 +235,74 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         _build._nvcc()
 
 
+def test_signature_arity_matches_source():
+    """Each ctypes signature names every parameter of its C entry, the
+    trailing stream included (K1's scratch pointer and size too)."""
+    src = (Path(_build.CSRC) / "bitonic.cu").read_text()
+    for name, sig in bitonic._SIGNATURES.items():
+        m = re.search(rf"int {name}\(([^)]*)\)", src)
+        assert m is not None, name
+        assert len(sig) == m.group(1).count(",") + 1, name
+
+
+def test_plan_constants_match_source():
+    """The host plan mirrors the schedule constants of csrc/bitonic.cu."""
+    src = (Path(_build.CSRC) / "bitonic.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m is not None, name
+        return int(m.group(1))
+
+    assert const("kPairTileLog2") == bitonic.PAIR_TILE_LOG2
+    assert const("kStageLayers") == bitonic.STAGE_LAYERS
+    assert const("kKeyTileLog2") == bitonic.KEY_TILE_LOG2
+    assert const("kMergeWinLog2") == bitonic.MERGE_WINDOW_LOG2
+    assert 5 + const("kPairRegs").bit_length() - 1 == bitonic._PAIR_WARP_LOG2
+    assert 5 + const("kKeyRegs").bit_length() - 1 == bitonic._KEY_WARP_LOG2
+
+
+@pytest.mark.parametrize("n_log2,plan,rounds", [
+    (13, (1, 0, 0), 0),      # one tile: no stage above it
+    (20, (1, 7, 7), 6),      # stages 14..20 take one staged pass each
+    (27, (1, 20, 14), 13),   # stages 22..27 take two
+    (28, (1, 22, 15), 14),
+])
+def test_plan_helpers_match_hand_counts(n_log2, plan, rounds):
+    n = 1 << n_log2
+    assert bitonic.network_plan(n) == plan
+    assert bitonic.merge_rounds(n) == rounds
+    assert bitonic.scratch_words(n) == (n + n // 8192 if rounds else 0)
+
+
+def test_plan_helpers_small_and_invalid():
+    for t in range(0, 14):
+        assert bitonic.network_plan(1 << t) == (1, 0, 0)
+    assert bitonic.merge_rounds(1 << 14) == 0 and bitonic.merge_rounds(1 << 15) == 1
+    with pytest.raises(ValueError, match="power of two"):
+        bitonic.network_plan(3000)
+
+
+def test_k1_wrapper_passes_its_scratch(monkeypatch):
+    """The K1 launch gets a scratch plane of ``scratch_words`` words when
+    merge rounds run, and a null pointer without them; every launch passes
+    one argument per C parameter but the stream."""
+    calls = []
+    monkeypatch.setattr(bitonic, "_on_card", lambda *ts, n: True)
+    monkeypatch.setattr(bitonic, "_launch",
+                        lambda name, dev, *args: calls.append((name, args)))
+    for t in (13, 16):
+        n = 1 << t
+        bitonic.sort_padded(torch.zeros(n, dtype=torch.int32), n, 16)
+    bitonic.sort_pairs_padded(torch.zeros(1024, dtype=torch.int32),
+                              torch.zeros(1024, dtype=torch.int32), 1024, 10)
+    (_, small), (_, big), (pname, pargs) = calls
+    assert small[2] == 0 and small[3] == 0 and small[4] == 1 << 13
+    assert big[2] != 0 and big[3] == bitonic.scratch_words(1 << 16) and big[4] == 1 << 16
+    assert len(small) + 1 == len(bitonic._SIGNATURES["bitonic_u32"])
+    assert len(pargs) + 1 == len(bitonic._SIGNATURES[pname])
+
+
 # --------------------------------------------------------- on the card
 
 
@@ -274,3 +345,35 @@ def test_k3_kernel_matches_plain(card, max_run):
     got = bitonic.fix_runs_pairs(hc, lc, 16, 16)
     want = bitonic.fix_runs_pairs_plain(hc, lc, 16, 16)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_log2", [16, 20, 24])
+def test_k1_merge_rounds_match_plain(card, n_log2):
+    """2, 6 and 10 merge rounds after the tile sort, over every pattern
+    (ties, extremes, sorted and reversed runs reach the merge-path
+    searches); the input plane is never written."""
+    rng = np.random.default_rng(n_log2 + 1000)
+    n = 1 << n_log2
+    for name, x in _patterns(n, rng).items():
+        xc = to_device_words(x, card)
+        keep = xc.clone()
+        got = bitonic.sort_padded(xc, n, 16)
+        want = bitonic.sort_padded_plain(xc)
+        assert torch.equal(got, want), name
+        assert torch.equal(xc, keep), name
+
+
+@pytest.mark.cuda
+def test_k2_staged_passes_keys_and_payload_match_plain(card):
+    """At 2^24 the stages above 2^21 need two staged passes; equal-key runs
+    make the payload order the network's own permutation, which must be
+    byte-equal to the plain version's."""
+    rng = np.random.default_rng(24)
+    n = 1 << 24
+    k = to_device_words(rng.integers(0, 4096, n).astype(np.uint32), card)
+    p = to_device_words(rng.integers(0, 2**32, n, dtype=np.uint32), card)
+    gk, gp = bitonic.sort_pairs_padded(k, p, n, 16)
+    wk, wp = bitonic.sort_pairs_padded_plain(k, p)
+    assert torch.equal(gk, wk)
+    assert torch.equal(gp, wp)
