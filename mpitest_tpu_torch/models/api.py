@@ -282,32 +282,38 @@ def resolve_device(x: Any, device: torch.device | str | None) -> torch.device:
     return torch.device("cuda")
 
 
-def sort(x: Any, algorithm: str = "radix",
-         device: torch.device | str | None = None,
-         tracer: Tracer | None = None, return_result: bool = False, *,
-         mesh: Mesh | None = None, digit_bits: int | None = None,
-         cap_factor: float = 2.0, oversample: int | None = None,
-         pack: str | None = None, exchange_engine: str | None = None) -> Any:
+def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
+         digit_bits: int | None = None, cap_factor: float = 2.0,
+         oversample: int | None = None, tracer: Tracer | None = None,
+         return_result: bool = False, pack: str | None = None,
+         exchange_engine: str | None = None, *,
+         device: torch.device | str | None = None) -> Any:
     """Sort keys on one card, or across the ranks of ``mesh``; returns a
     sorted numpy array (or the device-resident
     :class:`DistributedSortResult`).
 
+    The positional parameters are the reference's, in its order (its
+    ``payload``, the record sort, is not ported); ``device`` is
+    keyword-only.
+
     ``x`` is a host array (numpy or anything ``np.asarray`` takes) or a
     ``torch.Tensor`` (device-resident keys; moved to ``device``, or to the
-    mesh's first rank, if it lies elsewhere).  2-D input flattens.  Every
-    result is verified (``SORT_VERIFY``, default on); a failure raises
-    :class:`SortIntegrityError`.  ``algorithm`` is ``"radix"`` or
-    ``"sample"``; on one rank both take the same local path, as in the
-    reference.
-
-    ``mesh`` (``parallel.mesh.make_mesh``) with more than one rank runs
-    the distributed sort; a one-rank mesh is the one-rank path on its
-    device.  ``device`` and ``mesh`` exclude each other.  The distributed
-    knobs are the reference's: ``digit_bits`` (radix digit width, default
-    auto), ``cap_factor`` (initial exchange cap in fair shares),
-    ``oversample`` (splitter samples per shard, default 2P-1), ``pack``
-    (``"pallas"``: K5, the default, or ``"xla"``: plain scatter) and
-    ``exchange_engine`` (default: the ``SORT_EXCHANGE_ENGINE`` knob)."""
+    mesh's first rank, if it lies elsewhere).  2-D input flattens.
+    ``algorithm`` is ``"radix"`` or ``"sample"``; on one rank both take
+    the same local path, as in the reference.  ``mesh``
+    (``parallel.mesh.make_mesh``) with more than one rank runs the
+    distributed sort; a one-rank mesh is the one-rank path on its device.
+    The distributed knobs are the reference's: ``digit_bits`` (radix digit
+    width, default auto), ``cap_factor`` (initial exchange cap in fair
+    shares) and ``oversample`` (splitter samples per shard, default
+    2P-1).  ``tracer`` collects counters and spans.  Every result is
+    verified (``SORT_VERIFY``, default on); a failure raises
+    :class:`SortIntegrityError`.  ``return_result`` keeps the result on
+    the card.  ``pack`` is ``"pallas"`` (K5, the default) or ``"xla"``
+    (plain scatter), and ``exchange_engine`` defaults to the
+    ``SORT_EXCHANGE_ENGINE`` knob.  ``device`` names the card (or
+    ``"cpu"``) of a run without a mesh; ``device`` and ``mesh`` exclude
+    each other."""
     if algorithm not in ("radix", "sample"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if mesh is not None and device is not None:

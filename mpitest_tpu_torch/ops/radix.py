@@ -9,15 +9,19 @@ from host-static per-word value spreads (``diffs``), so range-narrow keys
 sort in fewer, narrower passes and constant words are skipped.
 
 Words are ``torch.int32`` tensors carrying uint32 bits (``ops/keys.py``).
-A CUDA tensor runs each pass as the kernel ``radix_pass`` of
-``csrc/radix.cu`` (three CUDA launches: tile histogram, per-bin scan,
-stable scatter); a CPU tensor runs :func:`radix_pass_plain`, a stable
-``torch.sort`` of the digit and a gather.  A tensor on any other device
-raises; nothing falls back from the kernel to the plain version.
+A CUDA tensor runs the onesweep kernels of ``csrc/radix.cu``: one
+``radix_histogram`` launch a sort (the digit counts of every planned
+pass) and one ``radix_pass`` launch a pass (rank, decoupled look-back,
+stable scatter), through one scratch buffer of :func:`scratch_words`
+words; a CPU tensor runs :func:`radix_pass_plain`, a stable
+``torch.sort`` of the digit and a gather, once a pass.  A tensor on any
+other device raises; nothing falls back from the kernel to the plain
+version.
 
-Two counters: :func:`pass_launches` adds one per planned pass that ran,
-in either form (the reference's ``_PASS_LAUNCHES``); ``LAUNCHES
-["radix_pass"]`` (``ops/_build.py``) adds one per kernel call only.
+Three counters: :func:`pass_launches` adds one per planned pass that
+ran, in either form (the reference's ``_PASS_LAUNCHES``); ``LAUNCHES
+["radix_pass"]`` and ``LAUNCHES["radix_histogram"]`` (``ops/_build.py``)
+add one per kernel call only.
 
 :func:`merge_order` (K8) is the inner loop of the external sort's k-way
 merge under ``radix_pallas`` (``store/merge.py``): the permutation that
@@ -56,6 +60,19 @@ _PAD_WORD = 0xFFFFFFFF
 #: Largest digit the CUDA pass takes (its shared histogram has 256 bins).
 _KERNEL_MAX_BITS = 8
 
+# Tiling of the onesweep kernels, mirrored from the constants at the top
+# of csrc/radix.cu (change both together).
+#: Threads of one onesweep block (``kThreads``).
+TILE_THREADS = 512
+#: Keys a lane ranks in one tile (``kItems``).
+TILE_ITEMS = 16
+#: Keys of one tile.
+TILE = TILE_THREADS * TILE_ITEMS
+#: Bins a pass's status row and histogram hold (``kBins``).
+STATUS_BINS = 1 << _KERNEL_MAX_BITS
+#: Passes one sort's scratch has tile counters for (``kMaxPasses``).
+MAX_PASSES = 128
+
 #: Merge-order element cap per merge round (the reference's
 #: ``MERGE_MAX_ELEMS``): the rank is O(n^2) compares, so larger rounds go
 #: to the host lexsort.
@@ -70,6 +87,7 @@ _MERGE_PLAIN_ROWS = 512
 _PASS_LAUNCHES = 0
 
 _build.LAUNCHES["radix_pass"] = 0
+_build.LAUNCHES["radix_histogram"] = 0
 _build.LAUNCHES["merge_order"] = 0
 
 
@@ -112,13 +130,32 @@ def pass_plan(diffs: tuple[int, ...] | None,
     return tuple(plan)
 
 
+def tiles(n: int) -> int:
+    """Onesweep tiles of ``n`` keys."""
+    return -(-n // TILE)
+
+
+def status_words(n: int) -> int:
+    """32-bit words of the look-back status: one 64-bit word per tile and
+    bin."""
+    return tiles(n) * STATUS_BINS * 2
+
+
+def scratch_words(n: int, passes: int) -> int:
+    """32-bit words of one sort's scratch: the status, a tile counter per
+    possible pass, and one histogram per planned pass."""
+    return status_words(n) + MAX_PASSES + passes * STATUS_BINS
+
+
 # ------------------------------------------------------------ kernel glue
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
-    "radix_pass": (_P, _P, _P, _P, _P, _P, _P, _P, _I, ctypes.c_longlong,
-                   _I, _I, _I, _P, _P, _P),
+    "radix_histogram": (_P, _P, _P, _P, _I, _L, _P, _I, _P, _L, _P),
+    "radix_pass": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
+                   _P, _L, _P),
 }
 MERGE_SIGNATURES = {
     "merge_order": (_P, _I, _I, _P, _P),
@@ -126,20 +163,26 @@ MERGE_SIGNATURES = {
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.typed("radix", _SIGNATURES)
-    lib.radix_hist_words.argtypes = [ctypes.c_longlong]
-    lib.radix_hist_words.restype = ctypes.c_longlong
-    return lib
+    return _build.typed("radix", _SIGNATURES)
+
+
+def _ptrs(planes: Words) -> list[int | None]:
+    return [t.data_ptr() for t in planes] + [None] * (4 - len(planes))
+
+
+def _launch_histogram(device: torch.device, src: Words, n: int,
+                      plan: tuple[tuple[int, int, int], ...],
+                      scratch: torch.Tensor) -> None:
+    triples = (ctypes.c_int * (3 * len(plan)))(*(v for p in plan for v in p))
+    _build.launch(_lib(), "radix_histogram", device, *_ptrs(src), len(src), n,
+                  triples, len(plan), scratch.data_ptr(), scratch.numel())
 
 
 def _launch(device: torch.device, src: Words, dst: Words, n: int, widx: int,
-            shift: int, bits: int, hist: torch.Tensor,
-            totals: torch.Tensor) -> None:
-    pad = [None] * (4 - len(src))
-    ins = [t.data_ptr() for t in src] + pad
-    outs = [t.data_ptr() for t in dst] + pad
-    _build.launch(_lib(), "radix_pass", device, *ins, *outs, len(src), n,
-                  widx, shift, bits, hist.data_ptr(), totals.data_ptr())
+            shift: int, bits: int, k: int, scratch: torch.Tensor) -> None:
+    _build.launch(_lib(), "radix_pass", device, *_ptrs(src), *_ptrs(dst),
+                  len(src), n, widx, shift, bits, k, scratch.data_ptr(),
+                  scratch.numel())
 
 
 def _on_card(words: Words, n: int, max_words: int = FUSED_MAX_WORDS,
@@ -185,14 +228,16 @@ def fused_radix_sort(words: Words,
                      diffs: tuple[int, ...] | None = None,
                      digit_bits: int = DIGIT_BITS) -> Words:
     """Sort u32 word planes lexicographically (``words[0]`` most
-    significant) with one kernel call per radix pass.
+    significant) with one kernel call per radix pass, after one
+    histogram call a sort on a card.
 
     Bit-identical to a stable lexicographic sort for any ``diffs`` that
     covers the data (``None`` always does): each pass is a stable
     counting sort by the planned digit, and constant bits never
     discriminate.  ``n <= 1`` or an empty plan returns ``words`` as
     given.  Otherwise returns new tensors; the inputs are not modified.
-    The kernel allocates its double buffers and scratch once per call.
+    The wrapper allocates the double buffers and the scratch once per
+    call.
     """
     global _PASS_LAUNCHES
     words = tuple(words)
@@ -212,16 +257,19 @@ def fused_radix_sort(words: Words,
                          f"digits of at most {_KERNEL_MAX_BITS} bits")
     if n >= 1 << 31:
         raise ValueError(f"n={n}: the CUDA pass takes fewer than 2^31 keys")
+    if len(plan) > MAX_PASSES:
+        raise ValueError(f"{len(plan)} passes: the CUDA sort takes at most "
+                         f"{MAX_PASSES}")
     dev = words[0].device
     bufs = [tuple(torch.empty_like(w) for w in words)
             for _ in range(min(2, len(plan)))]
-    hist = torch.empty(int(_lib().radix_hist_words(n)), dtype=torch.int32,
-                       device=dev)
-    totals = torch.empty(1 << _KERNEL_MAX_BITS, dtype=torch.int32, device=dev)
+    scratch = torch.empty(scratch_words(n, len(plan)), dtype=torch.int32,
+                          device=dev)
+    _launch_histogram(dev, words, n, plan, scratch)
     src = words
     for k, (widx, shift, bits) in enumerate(plan):
         dst = bufs[k % 2]
-        _launch(dev, src, dst, n, widx, shift, bits, hist, totals)
+        _launch(dev, src, dst, n, widx, shift, bits, k, scratch)
         _PASS_LAUNCHES += 1
         src = dst
     return src

@@ -10,7 +10,8 @@ Traces, with ``torch.profiler`` (CUPTI), one warm call each of:
 * end-to-end ``sort()`` of a device-resident int32 2^28 tensor and of an
   int64 2^27 tensor, verification on, result left on the card;
 * K4 ``radix.fused_radix_sort`` on 2^28 one-word and 2^27 two-word
-  planes (full plan: 4 and 8 passes of histogram, scan and scatter), and
+  planes (full plan: one histogram launch, then 4 and 8 onesweep passes),
+  and
   ``sort()`` of a device-resident int32 2^20 tensor under
   ``SORT_LOCAL_ENGINE=radix_pallas``;
 * ``sort()`` on eight ranks of the card (``make_mesh(8)``) of a
@@ -19,9 +20,9 @@ Traces, with ``torch.profiler`` (CUPTI), one warm call each of:
 
 For each it prints the host wall time of the window, the device time
 summed over CUDA events, their ratio (the device-busy share; one minus it
-is the idle share), the device time per kernel name, and for the bitonic
-paths the time and launches of each phase: K1's tile sort and merge
-rounds, K2's tile sort, staged passes and tail passes.  Every line
+is the idle share), the device time per kernel name, and the time and
+launches of each phase: K1's tile sort and merge rounds, K2's tile sort,
+staged passes and tail passes, K4's histogram and onesweep passes.  Every line
 carries the card's name and power limit.  Needs a CUDA device.
 """
 
@@ -48,6 +49,9 @@ K1_PHASES = {"K1 tile sort": ("k1_tile_sort",),
              "K1 merge rounds": ("k1_merge_partition", "k1_merge_round")}
 K2_PHASES = {"K2 tile sort": ("k2_tile_sort",), "K2 staged passes": ("k2_staged_pass",),
              "K2 tail passes": ("k2_tail_pass",), "K3": ("fix_runs_kernel",)}
+#: The onesweep radix kernels (``csrc/radix.cu``): one histogram a sort,
+#: one pass kernel a planned pass.
+K4_PHASES = {"K4 histogram": ("k4_histogram",), "K4 passes": ("k4_onesweep",)}
 
 
 def profile(label: str, fn: Callable[[], object], card: str, top: int = 10,
@@ -124,18 +128,19 @@ def main() -> int:
             groups=K2_PHASES)
     del x64
     x = words(1 << 28, 4)
-    profile("K4 fused_radix_sort 2^28 x1", lambda: radix.fused_radix_sort((x,)), card)
+    profile("K4 fused_radix_sort 2^28 x1", lambda: radix.fused_radix_sort((x,)), card,
+            groups=K4_PHASES)
     del x
     hi, lo = words(1 << 27, 5), words(1 << 27, 6)
     profile("K4 fused_radix_sort 2^27 x2",
-            lambda: radix.fused_radix_sort((hi, lo)), card)
+            lambda: radix.fused_radix_sort((hi, lo)), card, groups=K4_PHASES)
     del hi, lo
     x = words(1 << 20, 7)
     old = os.environ.get("SORT_LOCAL_ENGINE")
     os.environ["SORT_LOCAL_ENGINE"] = "radix_pallas"
     try:
         profile("sort(cuda int32 2^20), radix_pallas",
-                lambda: mt.sort(x, return_result=True), card)
+                lambda: mt.sort(x, return_result=True), card, groups=K4_PHASES)
     finally:
         if old is None:
             os.environ.pop("SORT_LOCAL_ENGINE")

@@ -9,6 +9,10 @@ kernel (``mpitest_tpu/ops/radix_pallas.py``, ``interpret=True``).
   planes ride as payload — there the order within one digit is visible
   and must be the stable order.
 * ``pass_launches()`` adds one per planned pass.
+* The glue of the onesweep kernels: the host mirrors of ``csrc/radix.cu``'s
+  tiling constants, the scratch the wrapper allocates, every ctypes
+  signature's arity, and the launches of one sort on a card (one
+  histogram, one pass kernel a planned pass), with the kernels replaced.
 
 Tolerance: exact bytes.  The CUDA kernel runs only on a card: the
 ``cuda`` tests hold it against the plain version there and skip here.
@@ -185,14 +189,15 @@ def test_wrapper_checks_arguments():
 
 
 def test_card_tensor_launches_kernel_never_plain(monkeypatch):
-    """On a card each planned pass is one kernel call, with the double
-    buffers allocated once; the plain version is never called."""
-    calls = []
+    """On a card each planned pass is one kernel call, after one histogram
+    call over the input, with the double buffers and the scratch
+    allocated once; the plain version is never called."""
+    calls, hists = [], []
     monkeypatch.setattr(radix, "_on_card", lambda words, n: True)
-    monkeypatch.setattr(radix, "_lib", lambda: type(
-        "L", (), {"radix_hist_words": staticmethod(lambda n: 256)})())
+    monkeypatch.setattr(radix, "_launch_histogram",
+                        lambda dev, src, n, plan, scratch: hists.append((src, plan, scratch)))
     monkeypatch.setattr(radix, "_launch",
-                        lambda dev, src, dst, *a: calls.append((src, dst, a[1:4])))
+                        lambda dev, src, dst, *a: calls.append((src, dst, a[1:4], a[4:])))
 
     def boom(*a, **k):
         raise AssertionError("plain version ran for a card tensor")
@@ -204,6 +209,9 @@ def test_card_tensor_launches_kernel_never_plain(monkeypatch):
     plan = radix.pass_plan((0x3FF, 0xFFFF), 2)
     assert [c[2] for c in calls] == list(plan)
     assert radix.pass_launches() - before == len(plan) == 4
+    assert len(hists) == 1 and hists[0][0] is w and hists[0][1] == plan
+    scratch = hists[0][2]
+    assert [c[3] for c in calls] == [(k, scratch) for k in range(4)]
     assert calls[0][0] is w                        # first pass reads the input
     assert calls[1][0] is calls[0][1]              # then ping-pongs two buffers
     assert calls[2][1] is calls[0][1] and calls[3][1] is calls[1][1]
@@ -214,11 +222,109 @@ def test_card_tensor_launches_kernel_never_plain(monkeypatch):
 
 def test_signature_arity_matches_source():
     """Each ctypes signature names every parameter of its C entry, the
-    trailing stream included."""
+    trailing stream included, and every C entry has a signature."""
     src = (Path(_build.CSRC) / "radix.cu").read_text()
-    m = re.search(r"int radix_pass\(([^)]*)\)", src)
-    assert m is not None
-    assert len(radix._SIGNATURES["radix_pass"]) == m.group(1).count(",") + 1
+    entries = re.findall(r"^int (\w+)\(([^)]*)\)", src, re.M)
+    assert sorted(e for e, _ in entries) == sorted(radix._SIGNATURES) == [
+        "radix_histogram", "radix_pass"]
+    for entry, params in entries:
+        assert len(radix._SIGNATURES[entry]) == params.count(",") + 1, entry
+        assert "stream" in params.split(",")[-1], entry
+
+
+def _constants(name):
+    src = (Path(_build.CSRC) / name).read_text()
+    return {k: v for k, v in re.findall(r"constexpr int (k\w+) = ([^;]+);", src)}
+
+
+def test_tile_constants_match_source():
+    """The host mirrors of csrc/radix.cu's tiling (threads, keys a lane,
+    bins, passes) are the kernel's own numbers."""
+    c = _constants("radix.cu")
+    assert int(c["kThreads"]) == radix.TILE_THREADS == 512
+    assert int(c["kItems"]) == radix.TILE_ITEMS
+    assert c["kTile"] == "kWarps * kWarpSpan"
+    assert c["kWarpSpan"] == "32 * kItems" and c["kWarps"] == "kThreads / 32"
+    assert radix.TILE == int(c["kThreads"]) * int(c["kItems"]) == 8192
+    assert c["kBins"] == "1 << kMaxBits"
+    assert radix.STATUS_BINS == 1 << int(c["kMaxBits"]) == 256
+    assert int(c["kMaxPasses"]) == radix.MAX_PASSES
+    # the longest plan the wrapper can make (4 words of 1-bit digits) fits
+    assert len(radix.pass_plan(None, radix.FUSED_MAX_WORDS, 1)) == radix.MAX_PASSES
+
+
+@pytest.mark.parametrize("n,passes,tiles", [(1, 1, 1), (8191, 4, 1), (8192, 4, 1),
+                                            (8193, 4, 2), (6144, 4, 1),
+                                            (1 << 20, 3, 128), (1 << 28, 4, 32768),
+                                            ((1 << 31) - 1, 16, 262144)])
+def test_scratch_words(n, passes, tiles):
+    """One 64-bit status word per tile and bin, 128 tile counters, one
+    256-bin histogram per pass (the layout the C entries check)."""
+    assert radix.tiles(n) == tiles
+    assert radix.status_words(n) == tiles * 256 * 2
+    assert radix.scratch_words(n, passes) == tiles * 512 + 128 + passes * 256
+    src = (Path(_build.CSRC) / "radix.cu").read_text()
+    assert "return tiles_for(n) * kBins * 2;" in src
+    assert ("return status_words(n) + kMaxPasses + "
+            "static_cast<long long>(n_passes) * kBins;") in src
+
+
+def test_wrapper_allocates_the_scratch_it_passes(monkeypatch):
+    """The scratch handed to the histogram and every pass is one int32
+    buffer of scratch_words(n, passes) words."""
+    seen = []
+    monkeypatch.setattr(radix, "_on_card", lambda words, n: True)
+    monkeypatch.setattr(radix, "_launch_histogram",
+                        lambda dev, src, n, plan, scratch: seen.append(scratch))
+    monkeypatch.setattr(radix, "_launch", lambda dev, src, dst, *a: seen.append(a[-1]))
+    n = 3 * radix.TILE + 17
+    w = (torch.zeros(n, dtype=torch.int32),) * 3
+    radix.fused_radix_sort(w, diffs=(0xFFF, 0, 0xFF))
+    assert len(seen) == 1 + 3
+    assert all(s is seen[0] for s in seen)
+    assert seen[0].dtype == torch.int32
+    assert seen[0].numel() == radix.scratch_words(n, 3) == 4 * 512 + 128 + 3 * 256
+
+
+class _FakeKernels:
+    """Stands in for the built library: every entry succeeds and records
+    its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if name == "kernel_error_string":
+            return lambda code: b"?"
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("diffs,passes", [(None, 4), ((0xFFFFF,), 3), ((0x3,), 1)])
+def test_one_sort_counts_one_histogram_and_a_launch_a_pass(diffs, passes, monkeypatch):
+    """Through the real launch path (``_build.launch``) with the library
+    replaced: one sort adds 1 to LAUNCHES["radix_histogram"] and one a
+    planned pass to LAUNCHES["radix_pass"]; the passes get pass indices
+    0.. in plan order and the histogram gets the whole plan."""
+    fake = _FakeKernels()
+    monkeypatch.setattr(radix, "_on_card", lambda words, n: True)
+    monkeypatch.setattr(radix, "_lib", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: __import__("contextlib").nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 0})())
+    x = (torch.arange(5000, dtype=torch.int32),)
+    base = dict(_build.LAUNCHES)
+    radix.fused_radix_sort(x, diffs=diffs)
+    assert _build.LAUNCHES["radix_histogram"] - base["radix_histogram"] == 1
+    assert _build.LAUNCHES["radix_pass"] - base["radix_pass"] == passes
+    names = [c[0] for c in fake.calls]
+    assert names == ["radix_histogram"] + ["radix_pass"] * passes
+    hist = fake.calls[0][1]
+    plan = radix.pass_plan(diffs, 1)
+    assert list(hist[6]) == [v for p in plan for v in p]     # the plan triples
+    assert hist[7] == passes and hist[9] == radix.scratch_words(5000, passes)
+    for k, (_, args) in enumerate(fake.calls[1:]):
+        assert args[10:14] == plan[k] + (k,)
 
 
 def test_launch_failure_raises_and_does_not_count(monkeypatch):
@@ -281,3 +387,69 @@ def test_k4_kernel_payload_shape_matches_plain(card):
     got = radix.fused_radix_sort(ws, diffs=(255, 0, 0))
     want = _plain(ws, (255, 0, 0))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _card_words(rng, n, card, high=2**32):
+    return to_device_words(rng.integers(0, high, n, dtype=np.uint64).astype(np.uint32), card)
+
+
+def _k4_equal(card, ws, diffs=None):
+    """One K4 sort on the card: byte-equal to the plain passes, with one
+    histogram launch and one pass launch a planned pass (none for n = 1,
+    which is sorted as given)."""
+    base = dict(_build.LAUNCHES)
+    got = radix.fused_radix_sort(ws, diffs=diffs)
+    torch.cuda.synchronize()
+    passes = len(radix.pass_plan(diffs, len(ws))) if ws[0].numel() > 1 else 0
+    assert _build.LAUNCHES["radix_histogram"] - base["radix_histogram"] == int(passes > 0)
+    assert _build.LAUNCHES["radix_pass"] - base["radix_pass"] == passes
+    want = _plain(ws, diffs)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_k4_onesweep_all_equal_keys(card):
+    """2^24 equal keys: every pass puts every key in one bin, so every tile
+    looks back on that bin's chain."""
+    _k4_equal(card, (torch.full((1 << 24,), 0x5A5A5A5A, dtype=torch.int32, device=card),))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "reversed"])
+def test_k4_onesweep_sorted_and_reversed(card, order):
+    rng = np.random.default_rng(11)
+    x = np.sort(rng.integers(0, 2**32, 1 << 22, dtype=np.uint64).astype(np.uint32))
+    if order == "reversed":
+        x = x[::-1].copy()
+    _k4_equal(card, (to_device_words(x, card), _card_words(rng, x.size, card)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", list(range(1, 34)) + [radix.TILE - 1, radix.TILE,
+                                                    radix.TILE + 1, 3 * radix.TILE + 7])
+def test_k4_onesweep_tile_edges(card, n):
+    rng = np.random.default_rng(n)
+    _k4_equal(card, tuple(_card_words(rng, n, card) for _ in range(2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_bits", range(1, 8))
+def test_k4_onesweep_four_planes_narrow_top_digit(card, top_bits):
+    """Four planes whose plans end in a digit of 1-7 bits (fewer bins
+    than the status row holds)."""
+    rng = np.random.default_rng(40 + top_bits)
+    n = (1 << 20) + 333
+    top = (1 << top_bits) - 1
+    ws = (_card_words(rng, n, card, top + 1), _card_words(rng, n, card),
+          _card_words(rng, n, card, 1 << 12), _card_words(rng, n, card))
+    _k4_equal(card, ws, (top, 0xFFFFFFFF, 0xFFF, 0xFFFFFFFF))
+
+
+@pytest.mark.cuda
+def test_k4_onesweep_single_pass_three_payload_planes(card):
+    """The distributed radix's pass 1: one 8-bit pass on the digit plane,
+    three word planes riding as payload in stable order."""
+    rng = np.random.default_rng(9)
+    n = 1 << 22
+    ws = (_card_words(rng, n, card, 256),) + tuple(_card_words(rng, n, card) for _ in range(3))
+    _k4_equal(card, ws, (255, 0, 0, 0))

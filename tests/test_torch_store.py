@@ -158,9 +158,22 @@ def test_order_for_needs_a_device_under_radix_pallas(rng, monkeypatch):
 
 def test_merge_signature_arity_matches_source():
     src = (Path(_build.CSRC) / "merge.cu").read_text()
-    m = re.search(r"int merge_order\(([^)]*)\)", src)
-    assert m is not None
-    assert len(radix.MERGE_SIGNATURES["merge_order"]) == m.group(1).count(",") + 1
+    entries = re.findall(r"^int (\w+)\(([^)]*)\)", src, re.M)
+    assert [e for e, _ in entries] == list(radix.MERGE_SIGNATURES) == ["merge_order"]
+    for entry, params in entries:
+        assert len(radix.MERGE_SIGNATURES[entry]) == params.count(",") + 1, entry
+        assert "stream" in params.split(",")[-1], entry
+
+
+def test_merge_constants_match_source():
+    """csrc/merge.cu stages n / kSplits columns a CTA for n up to kMaxN:
+    its envelope and plane range are the wrapper's."""
+    src = (Path(_build.CSRC) / "merge.cu").read_text()
+    c = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    assert int(c["kMaxN"]) == radix.MERGE_MAX_ELEMS == 4096
+    assert int(c["kMaxPlanes"]) == radix.MERGE_MAX_PLANES == 8
+    assert c["kMaxCols"] == "kMaxN / kSplits"
+    assert radix.MERGE_MAX_ELEMS % int(c["kSplits"]) == 0
 
 
 @pytest.fixture
@@ -185,6 +198,41 @@ def test_merge_order_kernel_matches_plain(n, key_words, rng, cuda_device):
     dev_planes = tuple(torch.from_numpy(p.view(np.int32)).to(cuda_device)
                        for p in planes)
     np.testing.assert_array_equal(radix.merge_order(dev_planes).cpu().numpy(), got)
+
+
+def _k8_on_card(planes, device):
+    """K8 on the card against its plain version and np.lexsort; one
+    launch."""
+    base = _build.LAUNCHES["merge_order"]
+    got = radix.merge_order_host(planes, device)
+    assert _build.LAUNCHES["merge_order"] == base + 1
+    on_card = tuple(torch.from_numpy(np.ascontiguousarray(p).view(np.int32)).to(device)
+                    for p in planes)
+    np.testing.assert_array_equal(got, radix.merge_order_plain(on_card).cpu().numpy())
+    np.testing.assert_array_equal(got, np.lexsort(tuple(reversed(planes))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(1, 9))
+@pytest.mark.parametrize("n", [2, 5, 8, 9, 255, 257, 1000, 1025, 2049, 4095, 4096])
+def test_merge_order_kernel_every_plane_count(n, k, rng, cuda_device):
+    """The cluster kernel at n = 2..4096 (column splits of 1 to 512, row
+    blocks cut anywhere) and k = 1..8 planes of dup-heavy words."""
+    planes = [rng.integers(0, 4, size=n).astype(np.uint32) for _ in range(k)]
+    planes[0][::3] = 0xFFFFFFFF
+    planes[-1][1::4] = 0x80000000
+    _k8_on_card(tuple(planes), cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 257, 4096])
+@pytest.mark.parametrize("word", [0, 0xFFFFFFFF])
+def test_merge_order_kernel_all_tied(n, word, cuda_device):
+    """Every key equal (0 or 0xFFFFFFFF in every plane): the order is the
+    identity, ties ranked by index across the column splits."""
+    planes = tuple(np.full(n, word, np.uint32) for _ in range(3))
+    _k8_on_card(planes, cuda_device)
+    assert radix.merge_order_host(planes, cuda_device).tolist() == list(range(n))
 
 
 # ------------------------------------------------- bytes on disk
