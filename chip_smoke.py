@@ -13,7 +13,10 @@ Phases, each failing loudly (any exception exits non-zero):
              card: K1 (bitonic_u32) at 2^20 and 2^24 over adversarial
              patterns (6 and 10 merge rounds), K2 (bitonic_pairs_u32) at
              2^20, keys and payload byte-equal, K3
-             (fix_runs_pairs) + boundary strips at 2^20 with planted runs,
+             (fix_runs_pairs) alone and as phase B (``fix_runs_flag``:
+             K3, the boundary-strip kernel and the residual flag) at
+             2^20 with planted runs of up to 40, 0..32 passes, lo bytes
+             and flag,
              K4 (radix_histogram + radix_pass, onesweep) at 2^20: one,
              two and four planes, full and compacted plans, the payload
              shape ``(digit,) + 2 words`` with diffs (255, 0, 0), n = 2^20
@@ -39,7 +42,10 @@ Phases, each failing loudly (any exception exits non-zero):
              (a) ``mpitest_tpu_torch.sort()`` at full size with
              verification on: int32 2^28 from the host and resident on
              the card, int64 2^27, the constant-word and hi-duplication
-             int64 routes at 2^26, float32 2^24 with NaN/±0/±inf, and a
+             int64 routes at 2^26, the residual fallback at 2^26 from the
+             host and resident on the card (hi runs of 24: K2 + K3, flag
+             set, ``pair_residual_fallback`` = 1),
+             float32 2^24 with NaN/±0/±inf, and a
              non-power-of-two int32 that pads to 2^26 (K1-K3);
              (b) ``sort()`` under ``SORT_LOCAL_ENGINE=radix_pallas`` at
              2^20 (K4: one histogram launch a sort, one pass launch a
@@ -79,17 +85,23 @@ Phases, each failing loudly (any exception exits non-zero):
              asserted.
 4. timing  — CUDA events, warm median: each kernel at the main path's
              shape beside its plain version, its bound and torch.sort (K1
-             and K2 with their pass counts and design floors; K4
+             and K2 with their pass counts and design floors; K3 alone
+             and phase B at 2^27 on K2's output (the kernels line: phase
+             B) and on planted runs of 1..16 and 1..24; K4
              at 2^28 one word with K4 byte-equal to plain there, 2^27 two
              words, 2^20 and 6144 keys (an external chunk sort), each with
              its ms a pass and its design floor); end-to-end sort() of the
              device-resident
              inputs; the CLI's own timing line and wall time on the 2^28
-             SORTBIN1 file; K5/K6/K7 at the mesh paths' shapes beside their
-             plain versions, their bounds and (K7) one ``copy_`` of the
-             transposed [P, P, cap] view; end-to-end sort() on eight ranks
-             of device-resident int32 2^28 (radix and sample) and int64
-             2^27 beside one rank; K8 at n = 4096 and 1024 with 3 and 4
+             SORTBIN1 file; K5/K6 at the mesh paths' shapes on even
+             starts and on starts at every residue mod 4 (one launch
+             through the wrapper, the kernels line's on the latter, and
+             the mean of 50 back to back through the C entry), K7 there
+             too, beside their plain versions, their bounds and (K7) one
+             ``copy_`` of the transposed [P, P, cap] view; end-to-end
+             sort() on eight ranks of device-resident int32 2^28 (radix
+             and sample) and int64 2^27 beside one rank, and of int32
+             2^26 under the lax exchange engine (K5); K8 at n = 4096 and 1024 with 3 and 4
              planes (one launch through the wrapper, which the kernels
              line keeps, and the mean of 50 launches back to back through
              the C entry; the round trip of merge_order_host,
@@ -279,27 +291,26 @@ def main() -> int:
         f"(tile sorts, staged, tails) = {bitonic.network_plan(n)}")
 
     rng = np.random.default_rng(23)
-    for max_run, b_log2 in ((16, 16), (24, 16), (16, 10)):
+    for max_run, b_log2, passes in ((16, 16, 16), (24, 16, 16), (16, 10, 16),
+                                    (40, 13, 32), (8, 12, 1), (24, 10, 0)):
         lens = rng.integers(1, max_run + 1, n)
         hi_np = np.repeat(np.arange(lens.size, dtype=np.uint32) * 7 + 1,
                           lens)[:n]
         hi = to_device_words(hi_np, dev)
         lo = words(n, max_run + b_log2)
-        got = kernels._fix_boundary(hi, bitonic.fix_runs_pairs(hi, lo, 16, b_log2),
-                                    16, 1 << b_log2)
-        want = kernels._fix_boundary(hi, bitonic.fix_runs_pairs_plain(hi, lo, 16, b_log2),
-                                     16, 1 << b_log2)
+        got = bitonic.fix_runs_pairs(hi, lo, passes, b_log2)
+        if not torch.equal(got, bitonic.fix_runs_pairs_plain(hi, lo, passes, b_log2)):
+            raise AssertionError(f"K3 2^20 runs<= {max_run} b_log2={b_log2} "
+                                 f"passes={passes}: kernel != plain")
+        # phase B in one call: K3, the boundary-strip kernel, the flag byte
+        got, bad = bitonic.fix_runs_flag(hi, lo, passes, b_log2)
+        want, want_bad = bitonic.fix_runs_flag_plain(hi, lo, passes, b_log2)
         sync()
-
-        def residual(v: torch.Tensor) -> bool:
-            return bool(torch.any((hi[1:] == hi[:-1])
-                                  & (unsigned_order(v[1:]) < unsigned_order(v[:-1]))))
-
-        if not torch.equal(got, want) or residual(got) != residual(want):
-            raise AssertionError(f"K3 2^20 runs<= {max_run} b_log2={b_log2}: "
-                                 "kernel != plain")
-        log(f"[kernels] K3+boundary 2^20 runs 1..{max_run} bsz 2^{b_log2}: lo "
-            f"bytes equal, residual={residual(got)} on both")
+        if not torch.equal(got, want) or bool(bad) != bool(want_bad):
+            raise AssertionError(f"K3 phase B 2^20 runs<= {max_run} b_log2={b_log2} "
+                                 f"passes={passes}: kernel != plain")
+        log(f"[kernels] K3 and phase B 2^20 runs 1..{max_run} bsz 2^{b_log2} "
+            f"passes {passes}: lo bytes equal, residual={bool(bad)} on both")
 
     def k4_plain(ws, diffs=None):
         planes = ws
@@ -555,6 +566,20 @@ def main() -> int:
         run_case("sort(np int64 2^26, hi duplication)", xh, "lax",
                  lambda: np.sort(xh), (), pair_dup_reroute=1)
         del xw, xh, hi
+        # runs of 24 equal hi words, distinct across runs and laid out in
+        # runs, so the strided sniffs never sample one run twice: K2 + K3
+        # leave residual runs (24 > 16 passes), the flag sends the sort to
+        # the lax fallback (W5); the host route keeps the name
+        # bitonic_pair, the device route reports the fused fallback
+        hr = np.repeat(np.arange((1 << 26) // 24 + 1, dtype=np.int64) * 2654435761
+                       % 2**31, 24)[:1 << 26]
+        xr = (hr << 32) | rng.integers(0, 2**32, 1 << 26).astype(np.int64)
+        run_case("sort(np int64 2^26, hi runs of 24)", xr, "bitonic_pair",
+                 lambda: np.sort(xr), (K2, K3), pair_residual_fallback=1)
+        run_case("sort(cuda int64 2^26, hi runs of 24)", torch.from_numpy(xr).to(dev),
+                 "bitonic_pair+lax_fallback", lambda: np.sort(xr), (K2, K3),
+                 pair_residual_fallback=1)
+        del hr, xr
         xf = float_keys(1 << 24)
         run_case("sort(np float32 2^24, NaN/±0/±inf)", xf, "bitonic",
                  float_oracle(xf), (K1,))
@@ -912,21 +937,42 @@ def main() -> int:
     design_floor(f"K2 2^27: {tiles} tile sort + {staged} staged + {tails} tail passes",
                  tiles + staged + tails, 4 * 4 * n, k2_ms)
 
-    # K3 on the pair network's own output: hi sorted, lo permuted in runs
-    g3 = bitonic.fix_runs_pairs(gk, gp, 16, bitonic.PAIR_BLOCK_LOG2)
-    w3 = bitonic.fix_runs_pairs_plain(gk, gp, 16, bitonic.PAIR_BLOCK_LOG2)
-    err = max_abs_err(g3, w3)
-    del g3, w3
-    if err:
-        raise AssertionError(f"K3 2^27: kernel != plain (max_abs_err {err})")
-    k3_ms = timed(lambda: bitonic.fix_runs_pairs(gk, gp, 16, bitonic.PAIR_BLOCK_LOG2),
-                  REPS)
-    k3_plain = timed(lambda: bitonic.fix_runs_pairs_plain(gk, gp, 16,
-                                                          bitonic.PAIR_BLOCK_LOG2),
-                     PLAIN_REPS)
-    entry("fix_runs_pairs", k3_ms, k3_plain, err, 3 * 4 * n, 16 * (n // 2) * 4,
-          None, "2^27 pairs, 16 passes")
-    del gk, gp
+    # K3 on the pair network's own output: hi sorted, lo permuted in runs.
+    # The main path calls phase B (K3, the strip kernel and the flag in
+    # one call): its time is the kernels line's; K3 alone is logged beside.
+    PB = bitonic.PAIR_BLOCK_LOG2
+
+    def planted(max_run: int, seed: int) -> torch.Tensor:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        m = 2 * n // (max_run + 1) + (1 << 16)
+        lens = torch.randint(1, max_run + 1, (m,), device=dev, generator=g)
+        keys = torch.arange(m, dtype=torch.int32, device=dev) * 11 + 3
+        return torch.repeat_interleave(keys, lens)[:n].contiguous()
+
+    k3_inputs = {"network output": (gk, gp), "planted runs 1..16": (planted(16, 277), lo),
+                 "planted runs 1..24": (planted(24, 278), lo)}
+    for label, (kh, kl) in k3_inputs.items():
+        g3 = bitonic.fix_runs_pairs(kh, kl, 16, PB)
+        err3 = max_abs_err(g3, bitonic.fix_runs_pairs_plain(kh, kl, 16, PB))
+        gl, gb = bitonic.fix_runs_flag(kh, kl, 16, PB)
+        wl, wb = bitonic.fix_runs_flag_plain(kh, kl, 16, PB)
+        err = max_abs_err(gl, wl)
+        del g3, gl, wl
+        if err3 or err or bool(gb) != bool(wb):
+            raise AssertionError(f"K3 2^27 {label}: kernel != plain (max_abs_err "
+                                 f"{err3}, phase B {err}, flags {bool(gb)}/{bool(wb)})")
+        k3_ms = timed(lambda: bitonic.fix_runs_pairs(kh, kl, 16, PB), REPS)
+        pb_ms = timed(lambda: bitonic.fix_runs_flag(kh, kl, 16, PB), REPS)
+        log(f"[timing] K3 2^27 {label}: K3 alone {k3_ms:.4f} ms, phase B (K3 + "
+            f"strips + flag) {pb_ms:.4f} ms, residual {bool(gb)}, bound "
+            f"{3 * 4 * n / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes) | card {card}")
+        if label == "network output":
+            pb_plain = timed(lambda: bitonic.fix_runs_flag_plain(kh, kl, 16, PB),
+                             PLAIN_REPS)
+            entry("fix_runs_pairs", pb_ms, pb_plain, err, 3 * 4 * n,
+                  16 * (n // 2) * 4, None,
+                  f"2^27 pairs, 16 passes, phase B (K3 alone {k3_ms:.4f} ms)")
+    del gk, gp, k3_inputs
 
     key64 = (hi.to(torch.int64) << 32) | u64(lo)
     pair_ms = timed(lambda: kernels.sort_two_words_bitonic(hi, lo), REPS)
@@ -978,23 +1024,61 @@ def main() -> int:
         cnt[-1] += n - int(cnt.sum())
         return torch.cumsum(cnt, 0, dtype=torch.int32) - cnt, cnt
 
+    def residue_segments(n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """Start p at p*(n/P) + p % 4: every residue mod 4, as radix
+        buckets start anywhere."""
+        starts = [p * (n // RANKS) + p % 4 for p in range(RANKS)]
+        cnts = [b - a for a, b in zip(starts, starts[1:] + [n])]
+        return (torch.tensor(starts, dtype=torch.int32, device=dev),
+                torch.tensor(cnts, dtype=torch.int32, device=dev))
+
+    xlib = pack.lib()
+    xstream = torch.cuda.current_stream(dev).cuda_stream
     for name, n, cap_of, n_planes in (
             (K5, 1 << 23, "radix P=8 lax engine sort(np int32 2^26)", 1),
             (K6, 1 << 25, "radix P=8 sort(cuda int32 2^28)", 1)):
         cap = mesh_counters[cap_of]["exchange_cap"]
         planes = tuple(words(n, 300 + i) for i in range(n_planes))
-        st, ct = even_segments(n)
-        if name == K5:
-            def run(): return (pack.segment_pack(planes[0], st, ct, cap, RANKS),)
-            def plain(): return (pack.segment_pack_plain(planes[0], st, ct, cap, RANKS),)
-        else:
-            def run(): return exchange.fused_pass_pack(planes, st, ct, cap, RANKS)
-            def plain(): return exchange.fused_pass_pack_plain(planes, st, ct, cap, RANKS)
-        err = k567_check(f"{name} P=8 n={n} cap={cap} (timing shape)", run(), plain())
-        entry(name, timed(run, REPS), timed(plain, PLAIN_REPS), err,
-              n_planes * 4 * (n + RANKS * cap), n_planes * RANKS * cap, None,
-              f"one rank: {n_planes} x 2^{n.bit_length() - 1} keys -> [8, {cap}]")
-        del planes
+        buf = torch.empty((RANKS, cap), dtype=torch.int32, device=dev)
+        for mode, (st, ct) in (("even", even_segments(n)), ("ragged", residue_segments(n))):
+            if name == K5:
+                def run(): return (pack.segment_pack(planes[0], st, ct, cap, RANKS),)
+                def plain(): return (pack.segment_pack_plain(planes[0], st, ct, cap, RANKS),)
+
+                def direct() -> int:
+                    return xlib.segment_pack(planes[0].data_ptr(), buf.data_ptr(),
+                                             st.data_ptr(), ct.data_ptr(), n, RANKS, cap,
+                                             0, xstream)
+            else:
+                def run(): return exchange.fused_pass_pack(planes, st, ct, cap, RANKS)
+                def plain(): return exchange.fused_pass_pack_plain(planes, st, ct, cap, RANKS)
+
+                def direct() -> int:
+                    return xlib.fused_pass_pack(planes[0].data_ptr(), None, None, None,
+                                                buf.data_ptr(), None, None, None, 0, 0, 0,
+                                                0, 1, st.data_ptr(), ct.data_ptr(), n,
+                                                RANKS, cap, xstream)
+
+            def fifty() -> None:
+                for _ in range(50):
+                    if direct():
+                        raise AssertionError(f"{name} launch refused")
+
+            err = k567_check(f"{name} P=8 n={n} cap={cap} {mode} starts (timing shape)",
+                             run(), plain())
+            one_ms = timed(run, REPS)
+            mean_ms = timed(fifty, REPS) / 50
+            nbytes = n_planes * 4 * (n + RANKS * cap)
+            log(f"[timing] {name} {mode} starts: one launch through the wrapper "
+                f"{one_ms:.4f} ms, mean of 50 back to back {mean_ms:.4f} ms, bound "
+                f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) | card {card}")
+            if mode == "ragged":
+                entry(name, one_ms, timed(plain, PLAIN_REPS), err, nbytes,
+                      n_planes * RANKS * cap, None,
+                      f"one rank: {n_planes} x 2^{n.bit_length() - 1} keys -> [8, {cap}], "
+                      f"starts at every residue mod 4 (one launch; mean of 50 back to "
+                      f"back {mean_ms:.4f} ms)")
+        del planes, buf
 
     cap = mesh_counters["radix P=8 sort(cuda int32 2^28)"]["exchange_cap"]
     sends = [words(RANKS * cap, 400 + r).view(RANKS, cap) for r in range(RANKS)]
@@ -1075,6 +1159,16 @@ def main() -> int:
                 f"on, result on card): {ms:.3f} ms = {x.numel() / ms / 1e3:.1f} "
                 f"Mkeys/s | card {card}")
         del x
+    # K5's path: the lax exchange engine on eight ranks (one segment_pack
+    # a rank a pass)
+    x = words(1 << 26, 286)
+    with env(SORT_EXCHANGE_ENGINE="lax"):
+        ms = timed(lambda: mt.sort(x, mesh=mesh, algorithm="radix", return_result=True),
+                   REPS)
+    log(f"[timing] end-to-end sort(cuda int32 2^26, P={RANKS}, radix, lax exchange "
+        f"engine (K5), verify on, result on card): {ms:.3f} ms = "
+        f"{x.numel() / ms / 1e3:.1f} Mkeys/s | card {card}")
+    del x
 
     log(f"[card] {card}")
     log(json.dumps({"kernels": entries}))

@@ -66,11 +66,28 @@
 //
 // K3 runs `passes` segment-masked odd-even transposition passes inside
 // each `bsz` block (lo sorted within runs of equal hi; the block's last
-// element pairs with nothing).  A CUDA block owns a 2^12 chunk plus a
-// halo of 32 on each side (clipped at the bsz block edges) in shared
-// memory: an odd-even pass moves information one position, so with
-// passes <= 32 the chunk's values equal those of the whole-block
-// computation.  One global read of hi and lo and one write of lo.
+// element pairs with nothing).  Bound: HBM bytes, one read of hi and lo
+// and one write of lo (0.48 ms at 2^27 pairs).  k3_fix_runs gives each
+// warp a window of 512 consecutive pairs in registers, 16 a lane loaded
+// with 16-byte vectors, and writes the inner 440 (the tile): a pass moves
+// information one position, so with a halo of 36 >= passes + 1 on each
+// side the tile and the first pair past it are exact.  The block edges
+// are a mask on the pairs, not a clip of the window.  The equal-hi mask
+// is computed once; an even pass is register compare-exchanges only, an
+// odd pass adds one shuffle each way for the pair across two lanes; no
+// block barrier.  A warp whose window has no equal neighbours skips the
+// passes (one vote), and a warp stops once two passes in a row swap
+// nothing (a fixed point of both parities: the rest are no-ops).
+//
+// With a flag byte, the same entry is the pair engine's whole phase B:
+// k3_fix_strips then finishes the runs that cross block edges in place,
+// one warp a strip of 2*passes pairs around each of the nblk - 1 edges
+// (two a lane, 2*passes odd-even passes of shuffles: the strips of
+// ops/bitonic.py fix_boundary_plain), and both kernels set the flag byte when
+// a pair of the final planes has equal hi and descending lo.  K3 judges
+// the pairs no strip touches, the strip kernel the 2*passes + 1 pairs of
+// its strip (its outer neighbours need bsz > 2*passes: nothing else
+// writes them).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() or the first refused attribute (0 on
@@ -94,11 +111,16 @@ constexpr int kTileRound = 4;       // layers a shared-memory round retires
 constexpr int kMergeWinLog2 = 13;   // K1 merge window: 8192 keys
 constexpr int kMergeThreads = 512;
 constexpr int kMergeSpan = (1 << kMergeWinLog2) / kMergeThreads;  // 16
-constexpr int kFixChunkLog2 = 12;
-constexpr int kFixHalo = 32;
-constexpr int kFixThreads = 512;
+constexpr int kFixMaxPasses = 32;   // K3 passes, at most
+constexpr int kFixRegs = 16;        // K3 consecutive pairs a lane holds
+constexpr int kFixHalo = 36;        // K3 window pairs each side of the tile
+constexpr int kFixWarps = 8;        // K3 warps a block (one window each)
+constexpr int kFixWindow = 32 * kFixRegs;
+constexpr int kFixTile = kFixWindow - 2 * kFixHalo;  // 440 pairs written a warp
 static_assert(kTileRound == 4, "smem_layers dispatches rounds of 1..4 layers");
 static_assert(kMergeSpan == 16, "k1_merge_round's padded stores assume 16");
+static_assert(kFixHalo >= kFixMaxPasses + 1, "the pair past the tile must be exact");
+static_assert(kFixHalo % 4 == 0 && kFixRegs % 4 == 0, "K3 moves 16-byte quads");
 
 __host__ __device__ constexpr int ilog2(int v) { return v <= 1 ? 0 : 1 + ilog2(v / 2); }
 
@@ -686,42 +708,208 @@ int run_keys(const uint32_t* in, uint32_t* out, uint32_t* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
-__global__ void fix_runs_kernel(const uint32_t* __restrict__ hi,
-                                const uint32_t* __restrict__ lo,
-                                uint32_t* __restrict__ out, int passes,
-                                int bsz_log2, int chunk_log2) {
-  __shared__ uint32_t sh[(1 << kFixChunkLog2) + 2 * kFixHalo];
-  __shared__ uint32_t sl[(1 << kFixChunkLog2) + 2 * kFixHalo];
-  const size_t chunk = static_cast<size_t>(1) << chunk_log2;
-  const size_t c0 = static_cast<size_t>(blockIdx.x) << chunk_log2;
-  const size_t b0 = (c0 >> bsz_log2) << bsz_log2;
-  const size_t b1 = b0 + (static_cast<size_t>(1) << bsz_log2);
-  const size_t w0 = c0 >= b0 + kFixHalo ? c0 - kFixHalo : b0;
-  const size_t w1 = c0 + chunk + kFixHalo <= b1 ? c0 + chunk + kFixHalo : b1;
-  const int len = static_cast<int>(w1 - w0);
-  for (int e = threadIdx.x; e < len; e += blockDim.x) {
-    sh[e] = hi[w0 + e];
-    sl[e] = lo[w0 + e];
-  }
-  __syncthreads();
-  const int par0 = static_cast<int>(w0 & 1);
-  for (int t = 0; t < passes; ++t) {
-    // pairs (e, e+1) whose left element has global parity t & 1; the
-    // window's last element pairs with nothing
-    const int first = (t & 1) ^ par0;
-    for (int e = first + 2 * static_cast<int>(threadIdx.x); e + 1 < len;
-         e += 2 * static_cast<int>(blockDim.x)) {
-      const uint32_t a = sl[e], b = sl[e + 1];
-      if (sh[e] == sh[e + 1] && a > b) {
-        sl[e] = b;
-        sl[e + 1] = a;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// One compare-exchange of K3: lo[j], lo[j+1] swapped when the pair is
+// inside one equal-hi run (bit j of `eq`) and descending.
+template <int E>
+__device__ __forceinline__ bool fix_cx(uint32_t (&v)[E], uint32_t eq, int j) {
+  const uint32_t a = v[j], b = v[j + 1];
+  const bool s = ((eq >> j) & 1u) && a > b;
+  v[j] = s ? b : a;
+  v[j + 1] = s ? a : b;
+  return s;
+}
+
+// grid: one warp a tile of kFixTile pairs, kFixWarps warps a block.  The
+// warp's window starts kFixHalo pairs before its tile (an even index, so
+// the lane's pair j has the parity of j).  strip_w > 0: the strips of
+// half-width strip_w are k3_fix_strips's, and flag != null collects the
+// residual of every other pair.
+__global__ void __launch_bounds__(kFixWarps * 32)
+k3_fix_runs(const uint32_t* __restrict__ hi, const uint32_t* __restrict__ lo,
+            uint32_t* __restrict__ out, unsigned char* __restrict__ flag,
+            long long n, int passes, int bsz_log2, int strip_w, bool vec) {
+  constexpr int E = kFixRegs;
+  const int lane = threadIdx.x & 31;
+  const long long tile = static_cast<long long>(blockIdx.x) * kFixWarps + (threadIdx.x >> 5);
+  const long long c0 = tile * kFixTile;
+  if (c0 >= n) return;                                  // the whole warp
+  const long long e0 = c0 - kFixHalo + static_cast<long long>(lane) * E;
+  const long long bmask = (1LL << bsz_log2) - 1;
+  uint32_t h[E], v[E];
+  uint32_t valid = 0;
+#pragma unroll
+  for (int q = 0; q < E / 4; ++q) {
+    const long long i = e0 + 4 * q;
+    if (vec && i >= 0 && i + 4 <= n) {
+      const uint4 a = *reinterpret_cast<const uint4*>(hi + i);
+      const uint4 b = *reinterpret_cast<const uint4*>(lo + i);
+      h[4 * q] = a.x; h[4 * q + 1] = a.y; h[4 * q + 2] = a.z; h[4 * q + 3] = a.w;
+      v[4 * q] = b.x; v[4 * q + 1] = b.y; v[4 * q + 2] = b.z; v[4 * q + 3] = b.w;
+      valid |= 0xFu << (4 * q);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const bool in = i + r >= 0 && i + r < n;
+        h[4 * q + r] = in ? hi[i + r] : 0u;
+        v[4 * q + r] = in ? lo[i + r] : 0u;
+        valid |= static_cast<uint32_t>(in) << (4 * q + r);
       }
     }
-    __syncthreads();
   }
-  const int off = static_cast<int>(c0 - w0);
-  for (int e = threadIdx.x; e < static_cast<int>(chunk); e += blockDim.x) {
-    out[c0 + e] = sl[off + e];
+  // eqr bit j: pair (j, j+1) has equal hi (j = E-1: the next lane's first
+  // pair; never past the window); eq: the same inside one bsz block
+  const uint32_t h_next = __shfl_down_sync(kFull, h[0], 1);
+  const uint32_t valid_next = __shfl_down_sync(kFull, valid, 1) & 1u;
+  // judge: the pairs of the tile whose residual this kernel decides (equal
+  // hi, no strip touches them), a data-independent mask set once.  Pair i
+  // is in the strip of edge k = u / bsz, u = i + strip_w + 1, when u mod
+  // bsz <= 2 * strip_w and 1 <= k < nblk, i.e. bsz <= u < n; 32-bit
+  // offsets suffice (n <= 2^31)
+  const uint32_t bm32 = static_cast<uint32_t>(bmask);
+  const uint32_t i32 = static_cast<uint32_t>(e0);
+  const uint32_t u32 = i32 + static_cast<uint32_t>(strip_w) + 1u;
+  const uint32_t bsz32 = bm32 + 1u, n32 = static_cast<uint32_t>(n - 1) + 1u;
+  const long long core_lo = c0 - e0, core_hi = c0 + kFixTile - e0;  // lane-relative
+  uint32_t eqr = 0, cut = 0, judge = 0;
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    const bool both = j + 1 < E ? ((valid >> j) & (valid >> (j + 1)) & 1u)
+                                : (lane < 31 && ((valid >> j) & valid_next & 1u));
+    const uint32_t right = j + 1 < E ? h[j + 1] : h_next;
+    eqr |= static_cast<uint32_t>(both && h[j] == right) << j;
+    cut |= static_cast<uint32_t>(((i32 + j + 1u) & bm32) == 0) << j;
+    const uint32_t u = u32 + j;
+    const bool strip = strip_w > 0 && (u & bm32) <= 2u * strip_w && u >= bsz32 && u < n32;
+    judge |= static_cast<uint32_t>(j >= core_lo && j < core_hi && !strip) << j;
+  }
+  judge &= eqr;
+  const uint32_t eq = eqr & ~cut;
+  const uint32_t eq_prev = __shfl_up_sync(kFull, eq, 1);   // every lane takes part
+  const bool eq_left = lane > 0 && ((eq_prev >> (E - 1)) & 1u);
+  if (__any_sync(kFull, eq != 0)) {
+    int quiet = 0;
+    for (int t = 0; t < passes; ++t) {
+      bool sw = false;
+      if ((t & 1) == 0) {
+#pragma unroll
+        for (int j = 0; j < E; j += 2) sw |= fix_cx(v, eq, j);
+      } else {
+        const uint32_t from_next = __shfl_down_sync(kFull, v[0], 1);
+        const uint32_t from_prev = __shfl_up_sync(kFull, v[E - 1], 1);
+#pragma unroll
+        for (int j = 1; j + 1 < E; j += 2) sw |= fix_cx(v, eq, j);
+        if (((eq >> (E - 1)) & 1u) && v[E - 1] > from_next) {
+          v[E - 1] = from_next;
+          sw = true;
+        }
+        if (eq_left && from_prev > v[0]) {
+          v[0] = from_prev;
+          sw = true;
+        }
+      }
+      if (__any_sync(kFull, sw)) {
+        quiet = 0;
+      } else if (++quiet == 2) {
+        break;
+      }
+    }
+  }
+  // the tile's quads (the tile and the window start are multiples of 4)
+#pragma unroll
+  for (int q = 0; q < E / 4; ++q) {
+    const long long i = e0 + 4 * q;
+    if (i < c0 || i >= c0 + kFixTile || i >= n) continue;
+    if (vec && i + 4 <= n) {
+      *reinterpret_cast<uint4*>(out + i) =
+          make_uint4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        if (i + r < n) out[i + r] = v[4 * q + r];
+      }
+    }
+  }
+  if (flag == nullptr) return;
+  const uint32_t v_next = __shfl_down_sync(kFull, v[0], 1);
+  uint32_t desc = 0;
+#pragma unroll
+  for (int j = 0; j < E; ++j) {
+    desc |= static_cast<uint32_t>(v[j] > (j + 1 < E ? v[j + 1] : v_next)) << j;
+  }
+  // one store a warp that found a residual, and none once the byte is
+  // set: every warp storing to one address would queue at L2
+  if (__any_sync(kFull, (desc & judge) != 0) && lane == 0 &&
+      *static_cast<volatile unsigned char*>(flag) == 0) {
+    *flag = 1;
+  }
+}
+
+// grid: one warp a block edge k = 1 .. nblk-1, kFixWarps warps a block.
+// The strip is [k*bsz - w, k*bsz + w) of the `lo` plane K3 wrote; lane l
+// < w holds its columns 2l and 2l+1 (column parity, as the strips of
+// fix_boundary_plain compare them).  2w passes sort every equal-hi segment of
+// the strip in place; then the 2w + 1 pairs from (start - 1, start) to
+// (end - 1, end) are judged for the flag.
+__global__ void __launch_bounds__(kFixWarps * 32)
+k3_fix_strips(const uint32_t* __restrict__ hi, uint32_t* __restrict__ lo,
+              unsigned char* __restrict__ flag, long long n, int w, int bsz_log2) {
+  const int lane = threadIdx.x & 31;
+  const long long k = 1 + static_cast<long long>(blockIdx.x) * kFixWarps + (threadIdx.x >> 5);
+  if (k >= (n >> bsz_log2)) return;                     // the whole warp
+  const long long s0 = (k << bsz_log2) - w;
+  const long long a = s0 + 2 * lane;
+  const bool act = lane < w;
+  uint32_t h0 = 0, h1 = 0, v0 = 0, v1 = 0;
+  if (act) {
+    h0 = hi[a];
+    h1 = hi[a + 1];
+    v0 = lo[a];
+    v1 = lo[a + 1];
+  }
+  const uint32_t h_next = __shfl_down_sync(kFull, h0, 1);
+  const bool e_in = act && h0 == h1;
+  const bool e_x = lane + 1 < w && h1 == h_next;        // (2l+1, 2l+2)
+  const bool e_left = __shfl_up_sync(kFull, e_x, 1) != 0 && lane > 0;
+  int quiet = 0;
+  for (int t = 0; t < 2 * w; ++t) {
+    bool sw = false;
+    if ((t & 1) == 0) {
+      if (e_in && v0 > v1) {
+        const uint32_t x = v0;
+        v0 = v1;
+        v1 = x;
+        sw = true;
+      }
+    } else {
+      const uint32_t from_next = __shfl_down_sync(kFull, v0, 1);
+      const uint32_t from_prev = __shfl_up_sync(kFull, v1, 1);
+      if (e_x && v1 > from_next) {
+        v1 = from_next;
+        sw = true;
+      }
+      if (e_left && from_prev > v0) {
+        v0 = from_prev;
+        sw = true;
+      }
+    }
+    if (__any_sync(kFull, sw)) {
+      quiet = 0;
+    } else if (++quiet == 2) {
+      break;
+    }
+  }
+  if (act) {
+    lo[a] = v0;
+    lo[a + 1] = v1;
+  }
+  const uint32_t v_next = __shfl_down_sync(kFull, v0, 1);
+  bool bad = (e_in && v0 > v1) || (e_x && v1 > v_next);
+  if (lane == 0) bad |= hi[s0 - 1] == h0 && lo[s0 - 1] > v0;
+  if (lane == w - 1) bad |= hi[s0 + 2 * w] == h1 && v1 > lo[s0 + 2 * w];
+  if (__any_sync(kFull, bad) && lane == 0 && *static_cast<volatile unsigned char*>(flag) == 0) {
+    *flag = 1;
   }
 }
 
@@ -751,18 +939,35 @@ int bitonic_pairs_u32(const void* kin, const void* pin, void* kout,
 }
 
 // K3: `passes` (<= 32) segment-masked odd-even passes of lo within runs of
-// equal hi inside each bsz block; writes the new lo plane to `out`.
-int fix_runs_pairs(const void* hi, const void* lo, void* out, long long n,
+// equal hi inside each bsz block; writes the new lo plane to `out` (not
+// `lo`).  With `flag` (one device byte) non-null it is the pair engine's
+// phase B: the runs across block edges are finished in `out` as well
+// (the boundary strips; bsz > 2 * passes when there are two blocks or
+// more) and *flag becomes 1 when some pair of the final planes has equal
+// hi and descending lo (unsigned), else 0.
+int fix_runs_pairs(const void* hi, const void* lo, void* out, void* flag, long long n,
                    int passes, long long bsz, void* stream) {
   const int bl = log2_exact(bsz);
-  if (bl < 1 || log2_exact(n) < bl || passes < 0 || passes > kFixHalo) {
+  if (bl < 1 || log2_exact(n) < bl || log2_exact(n) > 31 || passes < 0 ||
+      passes > kFixMaxPasses) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int cl = bl < kFixChunkLog2 ? bl : kFixChunkLog2;
-  const unsigned blocks = static_cast<unsigned>(n >> cl);
-  fix_runs_kernel<<<blocks, kFixThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
-      static_cast<uint32_t*>(out), passes, bl, cl);
+  const long long nblk = n >> bl;
+  const int strip_w = flag != nullptr && nblk >= 2 ? passes : 0;
+  if (strip_w > 0 && bsz <= 2LL * strip_w) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned char* f = static_cast<unsigned char*>(flag);
+  if (f != nullptr) RETURN_IF(cudaMemsetAsync(f, 0, 1, s));
+  const long long tiles = (n + kFixTile - 1) / kFixTile;
+  const bool vec = aligned16(hi) && aligned16(lo) && aligned16(out);
+  k3_fix_runs<<<static_cast<unsigned>((tiles + kFixWarps - 1) / kFixWarps), kFixWarps * 32,
+                0, s>>>(static_cast<const uint32_t*>(hi), static_cast<const uint32_t*>(lo),
+                        static_cast<uint32_t*>(out), f, n, passes, bl, strip_w, vec);
+  if (strip_w > 0) {
+    k3_fix_strips<<<static_cast<unsigned>((nblk - 1 + kFixWarps - 1) / kFixWarps),
+                    kFixWarps * 32, 0, s>>>(static_cast<const uint32_t*>(hi),
+                                            static_cast<uint32_t*>(out), f, n, strip_w, bl);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

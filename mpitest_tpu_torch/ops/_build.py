@@ -119,10 +119,18 @@ def typed(name: str, signatures: dict[str, tuple[type, ...]]) -> ctypes.CDLL:
 
 def launch(lib: ctypes.CDLL, name: str, device: torch.device, *args: int) -> None:
     """Call kernel entry ``name`` of ``lib`` on the current stream of
-    ``device``; raise if the launch was refused, else count it."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, name)(*args, stream)
+    ``device``; raise if the launch was refused, else count it.
+
+    When ``device`` is the current card (the common case) the call skips
+    the device guard and reads the raw stream handle: the Python launch
+    path is most of a small kernel's time (K5, K8)."""
+    fn = getattr(lib, name)
+    index = device.index
+    if device.type == "cuda" and index is not None and index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel {name} failed: {msg} (code {rc})")

@@ -18,7 +18,9 @@ Three CUDA kernels in ``csrc/bitonic.cu`` carry it:
   up to ``STAGE_LAYERS`` layers, one tail pass per stage);
 * **K3** ``fix_runs_pairs`` behind :func:`fix_runs_pairs` — segment-masked
   odd-even transposition of the payload within runs of equal key, per
-  block.
+  block; behind :func:`fix_runs_flag` the same entry is the pair engine's
+  whole phase B: K3, the boundary strips (a second kernel, in place) and
+  the residual flag, one device byte, in one call.
 
 Words are ``torch.int32`` tensors carrying raw uint32 bits (see
 ``ops/keys.py``).  Each wrapper checks its arguments, runs the plain
@@ -110,7 +112,7 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     "bitonic_u32": (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, _P),
     "bitonic_pairs_u32": (_P, _P, _P, _P, ctypes.c_longlong, _P),
-    "fix_runs_pairs": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+    "fix_runs_pairs": (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_longlong, _P),
 }
 
@@ -218,6 +220,46 @@ def fix_runs_pairs_plain(hi: torch.Tensor, lo: torch.Tensor, passes: int,
                          passes).reshape(-1)
 
 
+def fix_boundary_plain(hi: torch.Tensor, lo: torch.Tensor, passes: int,
+                       bsz: int) -> torch.Tensor:
+    """Finish equal-hi runs that cross block boundaries: K3 sorts within
+    blocks only.  A run of length <= ``passes`` that crosses boundary k
+    lies inside the 2*passes-wide strip around it, so sorting the
+    [nblk-1, 2*passes] strips with segment-masked odd-even passes and
+    writing them back completes every such run (the reference's
+    ``kernels._fix_boundary``).  ``passes == 0`` leaves no strip (the
+    reference's ``-0`` slice takes whole blocks there and fails)."""
+    n = hi.numel()
+    nblk = n // bsz
+    if nblk < 2 or passes == 0:
+        return lo
+    W = passes
+    hb = hi.view(nblk, bsz)
+    lb = lo.view(nblk, bsz).clone()
+    sh = torch.cat([hb[:-1, -W:], hb[1:, :W]], dim=1)
+    sl = torch.cat([lb[:-1, -W:], lb[1:, :W]], dim=1)
+    sl = odd_even_runs(sh, sl, 2 * W)  # sorts the whole strip
+    lb[:-1, -W:] = sl[:, :W]
+    lb[1:, :W] = sl[:, W:]
+    return lb.view(-1)
+
+
+def residual_plain(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The pair engine's residual flag: some adjacent pair has equal hi
+    and descending lo (unsigned).  A 0-dim bool tensor."""
+    return torch.any((hi[1:] == hi[:-1])
+                     & (unsigned_order(lo[1:]) < unsigned_order(lo[:-1])))
+
+
+def fix_runs_flag_plain(hi: torch.Tensor, lo: torch.Tensor, passes: int,
+                        b_log2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of phase B (:func:`fix_runs_flag`): K3's plain
+    version, the boundary strips and the residual expression."""
+    fixed = fix_runs_pairs_plain(hi, lo, passes, b_log2)
+    fixed = fix_boundary_plain(hi, fixed, passes, 1 << b_log2)
+    return fixed, residual_plain(hi, fixed)
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -253,8 +295,17 @@ def sort_pairs_padded(k: torch.Tensor, p: torch.Tensor, n_pow2: int,
     return ko, po
 
 
-#: most passes the K3 kernel takes (its shared-memory halo).
+#: most passes the K3 kernel takes (``kFixMaxPasses``; its halo is 36).
 FIX_MAX_PASSES = 32
+
+
+def _check_fix(hi: torch.Tensor, passes: int, b_log2: int) -> int:
+    n = hi.numel()
+    if not 0 <= passes <= FIX_MAX_PASSES:
+        raise ValueError(f"passes={passes}: use 0..{FIX_MAX_PASSES}")
+    if b_log2 < 1 or n % (1 << b_log2):
+        raise ValueError(f"length {n} is not a multiple of 2^{b_log2}")
+    return n
 
 
 def fix_runs_pairs(hi: torch.Tensor, lo: torch.Tensor, passes: int,
@@ -262,17 +313,32 @@ def fix_runs_pairs(hi: torch.Tensor, lo: torch.Tensor, passes: int,
     """Sort ``lo`` within equal-``hi`` runs of length <= ``passes`` inside
     each ``2^b_log2`` block (K3); runs that cross blocks are the caller's
     boundary-strip job.  Returns the new lo plane."""
-    n = hi.numel()
-    if not 0 <= passes <= FIX_MAX_PASSES:
-        raise ValueError(f"passes={passes}: use 0..{FIX_MAX_PASSES}")
-    if b_log2 < 1 or n % (1 << b_log2):
-        raise ValueError(f"length {n} is not a multiple of 2^{b_log2}")
+    n = _check_fix(hi, passes, b_log2)
     if not _on_card(hi, lo, n=n):
         return fix_runs_pairs_plain(hi, lo, passes, b_log2)
     out = torch.empty_like(lo)
     _launch("fix_runs_pairs", hi.device, hi.data_ptr(), lo.data_ptr(),
-            out.data_ptr(), n, passes, 1 << b_log2)
+            out.data_ptr(), 0, n, passes, 1 << b_log2)
     return out
+
+
+def fix_runs_flag(hi: torch.Tensor, lo: torch.Tensor, passes: int,
+                  b_log2: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pair engine's phase B in one K3 call: :func:`fix_runs_pairs`,
+    the boundary strips of :func:`fix_boundary_plain` and the residual
+    flag of :func:`residual_plain` on the result.  With two blocks or
+    more the block must exceed ``2 * passes`` (the strips must not
+    touch).  Returns ``(lo, residual)``, residual a 0-dim bool tensor."""
+    n = _check_fix(hi, passes, b_log2)
+    if not _on_card(hi, lo, n=n):
+        return fix_runs_flag_plain(hi, lo, passes, b_log2)
+    if n > 1 << b_log2 and 1 << b_log2 <= 2 * passes:
+        raise ValueError(f"block 2^{b_log2} must exceed 2 * passes = {2 * passes}")
+    out = torch.empty_like(lo)
+    flag = torch.empty((), dtype=torch.bool, device=hi.device)
+    _launch("fix_runs_pairs", hi.device, hi.data_ptr(), lo.data_ptr(),
+            out.data_ptr(), flag.data_ptr(), n, passes, 1 << b_log2)
+    return out, flag
 
 
 def bitonic_sort_u32(x: torch.Tensor) -> torch.Tensor:

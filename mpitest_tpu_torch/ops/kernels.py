@@ -65,26 +65,8 @@ def _fix_runs_oe(hi: torch.Tensor, lo: torch.Tensor, passes: int) -> torch.Tenso
     return bitonic.odd_even_runs(hi.view(1, -1), lo.view(1, -1), passes).view(-1)
 
 
-def _fix_boundary(hi: torch.Tensor, lo: torch.Tensor, passes: int,
-                  bsz: int) -> torch.Tensor:
-    """Finish equal-hi runs that cross block boundaries: K3 sorts within
-    blocks only.  A run of length <= ``passes`` that crosses boundary k
-    lies inside the 2*passes-wide strip around it, so sorting the
-    [nblk-1, 2*passes] strips with segment-masked odd-even passes and
-    writing them back completes every such run."""
-    n = hi.numel()
-    nblk = n // bsz
-    if nblk < 2:
-        return lo
-    W = passes
-    hb = hi.view(nblk, bsz)
-    lb = lo.view(nblk, bsz).clone()
-    sh = torch.cat([hb[:-1, -W:], hb[1:, :W]], dim=1)
-    sl = torch.cat([lb[:-1, -W:], lb[1:, :W]], dim=1)
-    sl = bitonic.odd_even_runs(sh, sl, 2 * W)  # sorts the whole strip
-    lb[:-1, -W:] = sl[:, :W]
-    lb[1:, :W] = sl[:, W:]
-    return lb.view(-1)
+#: The boundary strips of phase B (the reference's ``_fix_boundary``).
+_fix_boundary = bitonic.fix_boundary_plain
 
 
 def sort_two_words_bitonic(hi: torch.Tensor, lo: torch.Tensor,
@@ -116,10 +98,7 @@ def sort_two_words_bitonic(hi: torch.Tensor, lo: torch.Tensor,
         lo = torch.cat([lo, pad])
     hi_s, lo_r = bitonic.sort_pairs_padded(hi.contiguous(), lo.contiguous(),
                                            n_pow2, b_log2)
-    lo_s = bitonic.fix_runs_pairs(hi_s, lo_r, fix_passes, b_log2)
-    lo_s = _fix_boundary(hi_s, lo_s, fix_passes, 1 << b_log2)
-    residual = torch.any((hi_s[1:] == hi_s[:-1])
-                         & (unsigned_order(lo_s[1:]) < unsigned_order(lo_s[:-1])))
+    lo_s, residual = bitonic.fix_runs_flag(hi_s, lo_r, fix_passes, b_log2)
     return hi_s[:n], lo_s[:n], residual
 
 

@@ -8,7 +8,9 @@ Pallas kernels (``interpret=True``), and the wrappers' dispatch rules.
   the payload bytes too.
 * K3 ``fix_runs_pairs_plain`` + ``_fix_boundary`` match
   ``bitonic.fix_runs_pairs`` + ``kernels._fix_boundary`` on the lo bytes
-  and the residual flag.
+  and the residual flag; so does phase B's plain composition
+  (``fix_runs_flag`` on the CPU), over planted runs of up to 40 and 0..17
+  passes.
 
 The CUDA kernels themselves run only on a card: the ``cuda`` tests hold
 each kernel against its plain version there and skip here.
@@ -114,6 +116,48 @@ def test_fix_runs_plain_and_boundary_match_reference(max_run, passes):
     assert ref_resid == (max_run > passes)
 
 
+def _ref_phase_b(hi, lo, passes, b_log2):
+    """The reference's phase B: its K3 under interpret, its boundary
+    strips (none at 0 passes, where its ``-0`` slice takes whole blocks
+    and fails), and its residual expression."""
+    got = ref_bitonic.fix_runs_pairs(jnp.asarray(hi), jnp.asarray(lo), passes,
+                                     b_log2, interpret=True)
+    if passes:
+        got = ref_kernels._fix_boundary(jnp.asarray(hi), got, passes, 1 << b_log2)
+    got = np.asarray(got)
+    return got, bool(np.any((hi[1:] == hi[:-1]) & (got[1:] < got[:-1])))
+
+
+@pytest.mark.parametrize("passes", [0, 1, 16, 17])
+@pytest.mark.parametrize("max_run", [8, 16, 24, 40])
+def test_fix_runs_flag_plain_matches_reference(max_run, passes):
+    """Phase B's plain composition (K3's plain version, the strips, the
+    residual expression) against the reference's, lo bytes and flag."""
+    rng = np.random.default_rng(1000 + 50 * max_run + passes)
+    n, b_log2 = 1 << 13, 10
+    hi, lo = _planted_runs(n, max_run, rng)
+    want, want_bad = _ref_phase_b(hi, lo, passes, b_log2)
+    before = dict(_build.LAUNCHES)
+    got, bad = bitonic.fix_runs_flag(_t(hi), _t(lo), passes, b_log2)
+    assert _build.LAUNCHES == before   # the CPU runs no kernel
+    np.testing.assert_array_equal(to_host_words(got), want)
+    assert bad.dtype == torch.bool and bad.dim() == 0
+    assert bool(bad) == want_bad
+    if passes >= max_run:   # every run fits the passes: nothing is left
+        assert not want_bad
+
+
+def test_fix_runs_flag_plain_is_the_composition():
+    rng = np.random.default_rng(5)
+    hi, lo = _planted_runs(1 << 12, 20, rng)
+    h, low = _t(hi), _t(lo)
+    got, bad = bitonic.fix_runs_flag_plain(h, low, 16, 9)
+    want = kernels._fix_boundary(h, bitonic.fix_runs_pairs_plain(h, low, 16, 9), 16, 512)
+    assert torch.equal(got, want)
+    assert bool(bad) == bool(bitonic.residual_plain(h, want))
+    assert torch.equal(kernels._fix_boundary(h, low, 0, 512), low)
+
+
 def test_fix_runs_oe_is_whole_array_odd_even():
     rng = np.random.default_rng(2)
     hi, lo = _planted_runs(3000, 12, rng)
@@ -215,6 +259,43 @@ def test_launch_failure_raises(monkeypatch):
     assert bitonic.launches("bitonic_u32") == before
 
 
+def test_launch_on_the_current_card_skips_the_guard(monkeypatch):
+    """On the current card the launch passes the raw stream handle and
+    enters no device guard; on another card it switches devices."""
+    got = []
+
+    class FakeLib:
+        @staticmethod
+        def bitonic_u32(*args):
+            got.append(args)
+            return 0
+
+    guards = []
+
+    class Guard:
+        def __init__(self, d):
+            guards.append(d)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 1000 + i,
+                        raising=False)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("S", (), {"cuda_stream": 2000})())
+    before = bitonic.launches("bitonic_u32")
+    _build.launch(FakeLib(), "bitonic_u32", torch.device("cuda", 0), 7, 8)
+    _build.launch(FakeLib(), "bitonic_u32", torch.device("cuda", 1), 7, 8)
+    assert got == [(7, 8, 1000), (7, 8, 2000)]
+    assert guards == [torch.device("cuda", 1)]
+    assert bitonic.launches("bitonic_u32") == before + 2
+
+
 def test_build_failure_raises_with_stderr(monkeypatch, tmp_path):
     (tmp_path / "bad.cu").write_text("this is not C++\n")
     monkeypatch.setattr(_build, "CSRC", tmp_path)
@@ -237,12 +318,15 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
 
 def test_signature_arity_matches_source():
     """Each ctypes signature names every parameter of its C entry, the
-    trailing stream included (K1's scratch pointer and size too)."""
+    trailing stream included (K1's scratch pointer and size too, K3's
+    flag byte), and every C entry has a signature."""
     src = (Path(_build.CSRC) / "bitonic.cu").read_text()
     for name, sig in bitonic._SIGNATURES.items():
         m = re.search(rf"int {name}\(([^)]*)\)", src)
         assert m is not None, name
         assert len(sig) == m.group(1).count(",") + 1, name
+    entries = re.findall(r"^int (\w+)\(", src[src.index('extern "C"'):], re.M)
+    assert sorted(entries) == sorted(bitonic._SIGNATURES)
 
 
 def test_plan_constants_match_source():
@@ -260,6 +344,42 @@ def test_plan_constants_match_source():
     assert const("kMergeWinLog2") == bitonic.MERGE_WINDOW_LOG2
     assert 5 + const("kPairRegs").bit_length() - 1 == bitonic._PAIR_WARP_LOG2
     assert 5 + const("kKeyRegs").bit_length() - 1 == bitonic._KEY_WARP_LOG2
+
+
+def test_fix_constants_match_source():
+    """K3's pass limit mirrors ``kFixMaxPasses``; its halo covers the
+    passes and the pair past the tile, in whole 16-byte quads."""
+    src = (Path(_build.CSRC) / "bitonic.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m is not None, name
+        return int(m.group(1))
+
+    assert const("kFixMaxPasses") == bitonic.FIX_MAX_PASSES
+    assert const("kFixHalo") >= bitonic.FIX_MAX_PASSES + 1
+    assert const("kFixHalo") % 4 == 0 and const("kFixRegs") % 4 == 0
+
+
+def test_fix_runs_wrappers_pass_the_flag(monkeypatch):
+    """K3 alone passes a null flag; phase B passes a one-byte bool flag,
+    returns it as the residual, and refuses touching strips on a card."""
+    calls = []
+    monkeypatch.setattr(bitonic, "_on_card", lambda *ts, n: True)
+    monkeypatch.setattr(bitonic, "_launch",
+                        lambda name, dev, *args: calls.append((name, args)))
+    x = torch.zeros(4096, dtype=torch.int32)
+    bitonic.fix_runs_pairs(x, x, 16, 10)
+    lo, bad = bitonic.fix_runs_flag(x, x, 16, 10)
+    (n1, a1), (n2, a2) = calls
+    assert n1 == n2 == "fix_runs_pairs"
+    assert a1[3] == 0 and a2[3] == bad.data_ptr() != 0
+    assert bad.dtype == torch.bool and bad.dim() == 0 and lo.shape == x.shape
+    assert len(a1) + 1 == len(a2) + 1 == len(bitonic._SIGNATURES["fix_runs_pairs"])
+    assert a2[4:] == (4096, 16, 1024)
+    with pytest.raises(ValueError, match="exceed 2 \\* passes"):
+        bitonic.fix_runs_flag(x, x, 32, 6)
+    bitonic.fix_runs_flag(x, x, 32, 12)   # one block: no strip
 
 
 @pytest.mark.parametrize("n_log2,plan,rounds", [
@@ -377,3 +497,64 @@ def test_k2_staged_passes_keys_and_payload_match_plain(card):
     wk, wp = bitonic.sort_pairs_padded_plain(k, p)
     assert torch.equal(gk, wk)
     assert torch.equal(gp, wp)
+
+
+def _k3_inputs(n, b_log2, rng):
+    """K3's adversaries: runs of 1..40 with runs of 40 planted across the
+    warp tiles' edges (multiples of 440), the 4096-pair chunks of the
+    earlier design and the blocks; every hi equal; no equal neighbours;
+    runs already sorted."""
+    hi, lo = _planted_runs(n, 40, rng)
+    key = int(hi.max()) + 1
+    for e in list(range(440, n, 440 * 37)) + list(range(4096, n, 4096 * 5)) + \
+            list(range(1 << b_log2, n, 1 << b_log2)):
+        a = max(e - int(rng.integers(1, 40)), 0)
+        hi[a:a + 40] = key
+        key += 1
+    sorted_lo = lo.copy()
+    for start in np.flatnonzero(np.r_[True, hi[1:] != hi[:-1]]):
+        end = start + 1
+        while end < n and hi[end] == hi[start]:
+            end += 1
+        sorted_lo[start:end] = np.sort(sorted_lo[start:end])
+    return {"runs 1..40 across edges": (hi, lo),
+            "all equal hi": (np.full(n, 7, np.uint32), lo),
+            "no equal neighbours": (np.arange(n, dtype=np.uint32) * 3, lo),
+            "runs already sorted": (hi, sorted_lo)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("passes", [0, 1, 15, 16, 17, 32])
+@pytest.mark.parametrize("b_log2", [10, 12, 13, 16])
+def test_k3_redesign_matches_plain(card, b_log2, passes):
+    """K3 byte-equal to its plain version on every adversary, and phase B
+    (K3, the strip kernel, the flag) byte-equal to its composition, lo
+    and flag; the input planes are never written."""
+    rng = np.random.default_rng(b_log2 * 100 + passes)
+    n = 1 << 17
+    for name, (hi, lo) in _k3_inputs(n, b_log2, rng).items():
+        hc, lc = to_device_words(hi, card), to_device_words(lo, card)
+        keep = lc.clone()
+        before = _build.launches("fix_runs_pairs")
+        got = bitonic.fix_runs_pairs(hc, lc, passes, b_log2)
+        assert torch.equal(got, bitonic.fix_runs_pairs_plain(hc, lc, passes, b_log2)), name
+        got, bad = bitonic.fix_runs_flag(hc, lc, passes, b_log2)
+        want, want_bad = bitonic.fix_runs_flag_plain(hc, lc, passes, b_log2)
+        assert _build.launches("fix_runs_pairs") == before + 2
+        assert torch.equal(got, want), name
+        assert bool(bad) == bool(want_bad), name
+        assert torch.equal(lc, keep), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 512, 1024])
+def test_k3_small_planes_match_plain(card, n):
+    """Planes smaller than one warp tile, and the scalar edge of the
+    window (n below a quad)."""
+    rng = np.random.default_rng(n)
+    hi = to_device_words(rng.integers(0, 3, n).astype(np.uint32), card)
+    lo = to_device_words(rng.integers(0, 2**32, n, dtype=np.uint32), card)
+    for b_log2 in sorted({1, max(n.bit_length() - 1, 1)}):
+        for passes in (0, 1, 16, 32):
+            got = bitonic.fix_runs_pairs(hi, lo, passes, b_log2)
+            assert torch.equal(got, bitonic.fix_runs_pairs_plain(hi, lo, passes, b_log2))

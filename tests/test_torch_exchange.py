@@ -41,7 +41,14 @@ def _u(t: torch.Tensor) -> np.ndarray:
 
 def _segments(rng, n: int, P: int, mode: str):
     """Ascending segment starts over ``[0, n)`` with ragged counts;
-    ``mode`` plants empty segments or one segment above the cap."""
+    ``mode`` plants empty segments or one segment above the cap, or puts
+    start p at p*(n//P) + p % 4 (every residue mod 4: the 16-byte quads
+    of the source never line up with those of the rows)."""
+    if mode == "residues":
+        starts = np.array([p * (n // P) + p % 4 for p in range(P)], np.int32)
+        starts[0] = 0
+        cnts = (np.append(starts[1:], n) - starts).astype(np.int32)
+        return starts, cnts
     cuts = np.sort(rng.integers(0, n + 1, P - 1))
     starts = np.concatenate([[0], cuts]).astype(np.int32)
     cnts = (np.concatenate([cuts, [n]]) - starts).astype(np.int32)
@@ -56,7 +63,10 @@ def _segments(rng, n: int, P: int, mode: str):
     (5 * CHUNK + 3, 3, 2 * CHUNK, "ragged"),
     (6 * CHUNK - 9, 2, CHUNK, "overflow"),       # cnt > cap: lanes dropped
     (1000, 4, CHUNK, "empty"),
-], ids=["p8", "p8-odd-n-empty", "p3", "p2-overflow", "small-n"])
+    (6 * CHUNK + 13, 8, CHUNK, "residues"),      # starts at every residue mod 4
+    (3 * CHUNK + 2, 4, CHUNK, "residues"),
+], ids=["p8", "p8-odd-n-empty", "p3", "p2-overflow", "small-n", "p8-residues",
+        "p4-residues"])
 @pytest.mark.parametrize("fill", [0, 0xFFFFFFFF, 7])
 def test_segment_pack_matches_reference(n, P, cap, mode, fill):
     rng = np.random.default_rng(n + P + fill)
@@ -86,7 +96,7 @@ def test_segment_pack_past_the_data_reads_zero():
 
 
 @pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
-@pytest.mark.parametrize("mode", ["ragged", "empty"])
+@pytest.mark.parametrize("mode", ["ragged", "empty", "residues"])
 def test_fused_pass_pack_matches_reference(n_planes, mode):
     rng = np.random.default_rng(10 * n_planes + len(mode))
     n, P, cap = 4 * CHUNK + 77, 8, CHUNK
@@ -195,6 +205,32 @@ def test_k5_k6_on_the_card_match_plain(card, mode):
     got = exchange.fused_pass_pack(planes, st, ct, cap, P, (1, 2, 3))
     want = exchange.fused_pass_pack_plain(planes, st, ct, cap, P, (1, 2, 3))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["residues", "residues-empty", "residues-overflow"])
+def test_k5_k6_residues_on_the_card_match_plain(card, mode):
+    """Starts at every residue mod 4, n not a multiple of 4, empty
+    segments (cnt = 0) and a segment past the cap (cnt > cap, past n)."""
+    rng = np.random.default_rng(11)
+    n, P, cap = (1 << 20) - 333, 8, 1 << 17
+    starts, cnts = _segments(rng, n, P, "residues")
+    if mode == "residues-empty":
+        cnts[1::3] = 0
+    if mode == "residues-overflow":
+        cnts[3] = cap + 4099
+        cnts[7] = n - starts[7] + 77               # runs past the data: zeros
+    assert n % 4 and sorted(set(int(s) % 4 for s in starts)) == [0, 1, 2, 3]
+    planes = [_t(rng.integers(0, 2**32, n, dtype=np.uint32)).to(card) for _ in range(4)]
+    st, ct = _t(starts).to(card), _t(cnts).to(card)
+    got = pack.segment_pack(planes[0], st, ct, cap, P, fill=0xFFFFFFFF)
+    assert torch.equal(got, pack.segment_pack_plain(planes[0], st, ct, cap, P,
+                                                    fill=0xFFFFFFFF))
+    for w in (1, 2, 4):
+        fills = (5, 0xFFFFFFFF, 0, 9)[:w]
+        got = exchange.fused_pass_pack(planes[:w], st, ct, cap, P, fills)
+        want = exchange.fused_pass_pack_plain(planes[:w], st, ct, cap, P, fills)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
