@@ -78,6 +78,26 @@ Phases, each failing loudly (any exception exits non-zero):
              32 runs, 2 passes at fan-in 16; cut from 2^26, which takes more
              than a minute on an H100) and ``SORT_RANKS=8 SORT_ALGO=radix`` on
              a 2^24 file at 4 MiB (64 runs, K6/K7 inside).
+             (i) this slice's paths: the record sort ``sort(x, payload=)``
+             on int32 2^25 with uint64 row ids, int64 2^24 with 10-byte
+             records and int32 2^24-5 of 2^10 distinct keys plus all-ones
+             keys that tie with the pad lanes (against the stable
+             argsort-gather on the card; no
+             hand-written kernel launches: the reference's ``lax.sort``);
+             a packed batch of 64 requests filling 2^16 keys in int32,
+             int64 and float32 (every segment equals its own ``sort()``,
+             ``verify_segments`` flags one planted bad segment only);
+             ``ingest_to_mesh(make_mesh(1))`` then ``sort(staged)`` on
+             int32 2^28 (K1) and int64 2^27 (K2 + K3) with the ingest's
+             stage seconds and overlap, and the staged int32 sort's
+             ``max_memory_allocated`` under ``SORT_DONATE=0`` and ``1``;
+             ``external_sort`` of int32 2^22 with 8-byte payloads at a 4
+             MiB budget (equal to the in-memory record sort, runs and
+             passes as computed from the budget).  The host inputs of
+             (d)-(f) at 32 MiB or more stream onto the eight ranks
+             (``ingest.pipeline`` span asserted) and their contiguous
+             results stream back through ``to_numpy(tracer)``
+             (``egress.*`` spans, one fetch a rank).
              Every output equals its oracle (np.sort, or torch.sort on the
              card for the large rows and every mesh row; the CLI's probe
              equals the (n/2)-th element of np.sort); the ``local_engine``
@@ -107,7 +127,9 @@ Phases, each failing loudly (any exception exits non-zero):
              the C entry; the round trip of merge_order_host,
              the plain version, and the host np.lexsort of the same
              planes);
-             the wall of each external leg.
+             the wall of each external leg; phase 3i's notes (record sort
+             Mkeys/s, ingest stage seconds and overlap, donation memory),
+             its wall and the smoke's total wall.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -183,7 +205,7 @@ def main() -> int:
 
     import mpitest_tpu_torch as mt
     from mpitest_tpu_torch import cli
-    from mpitest_tpu_torch.models import api
+    from mpitest_tpu_torch.models import api, ingest, segmented
     from mpitest_tpu_torch.ops import _build, bitonic, exchange, kernels, pack, radix
     from mpitest_tpu_torch.ops.keys import codec_for, to_device_words, unsigned_order
     from mpitest_tpu_torch.parallel.mesh import make_mesh
@@ -193,6 +215,7 @@ def main() -> int:
     from mpitest_tpu_torch.utils import native_encode
     from mpitest_tpu_torch.utils.trace import Tracer
 
+    t_smoke = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
 
@@ -684,8 +707,33 @@ def main() -> int:
     def run_mesh_case(label: str, x, algo: str, oracle, local: str, **checks) -> None:
         tr = Tracer()
         t = time.perf_counter()
-        got = mt.sort(x, algorithm=algo, mesh=mesh, tracer=tr)
+        res = mt.sort(x, algorithm=algo, mesh=mesh, tracer=tr, return_result=True)
+        got = res.to_numpy(tracer=tr)
         secs = time.perf_counter() - t
+        # host input of STREAM_MIN_BYTES or more streams onto the ranks; a
+        # contiguous result of EGRESS_MIN_BYTES or more streams back
+        names = [sp.name for sp in tr.spans.spans]
+        streamed = not isinstance(x, torch.Tensor) and x.nbytes >= ingest.STREAM_MIN_BYTES
+        if streamed != ("ingest.pipeline" in names):
+            raise AssertionError(f"{label}: ingest.pipeline span present="
+                                 f"{'ingest.pipeline' in names}, expected {streamed}")
+        egress = (res.counts is None
+                  and res.n_valid * res.dtype.itemsize >= ingest.EGRESS_MIN_BYTES)
+        if names.count("egress.fetch") != (RANKS if egress else 0):
+            raise AssertionError(f"{label}: {names.count('egress.fetch')} egress.fetch "
+                                 f"spans, expected {RANKS if egress else 0}")
+        if streamed:
+            pipe = next(sp for sp in tr.spans.spans if sp.name == "ingest.pipeline")
+            log(f"[main] {label}: streamed ingest {pipe.attrs['chunks']} chunks, "
+                f"wall {pipe.dt:.3f} s, parse {pipe.attrs['parse_s']} s, encode "
+                f"{pipe.attrs['encode_s']} s, transfer {pipe.attrs['transfer_s']} s, "
+                f"overlap_efficiency {pipe.attrs['overlap_efficiency']}, engine "
+                f"{pipe.attrs['encode_engine']}")
+        if egress:
+            fetch = sum(sp.dt for sp in tr.spans.spans if sp.name == "egress.fetch")
+            dec = sum(sp.dt for sp in tr.spans.spans if sp.name == "egress.decode")
+            log(f"[main] {label}: streamed egress {RANKS} shards, fetch {fetch:.3f} s, "
+                f"decode {dec:.3f} s (host clock)")
         want = oracle()
         if got.dtype != want.dtype or not np.array_equal(
                 got.view(np.uint8), want.view(np.uint8)):
@@ -848,6 +896,179 @@ def main() -> int:
                         counters={"external_runs": runs, "external_merge_passes": 2})
                 os.unlink(f)
 
+    # ------------------------------------------------ 3i. the new slice's paths
+    mesh1 = make_mesh(1)
+    slice_notes: list[str] = []
+
+    def no_kernel(label: str, counts: dict[str, int]) -> None:
+        """The record and segmented programs are torch.sort plus gathers
+        (the reference's lax.sort): no hand-written kernel launches."""
+        if any(counts.values()):
+            raise AssertionError(f"{label} launched a hand-written kernel: {counts}")
+
+    def card_stable_gather(x: np.ndarray, pay: np.ndarray):
+        t = torch.from_numpy(x).to(dev)
+        idx = torch.sort(t, stable=True).indices
+        return (t[idx].cpu().numpy(),
+                torch.from_numpy(pay).to(dev)[idx].cpu().numpy())
+
+    def record_case(label: str, x: np.ndarray, pay) -> None:
+        tr = Tracer()
+        t = time.perf_counter()
+        got_k, got_p = mt.sort(x, payload=pay, tracer=tr)
+        secs = time.perf_counter() - t
+        pm = np.ascontiguousarray(pay).view(np.uint8).reshape(x.size, -1)
+        want_k, want_p = card_stable_gather(x, pm)
+        if got_k.tobytes() != want_k.tobytes() or got_p.tobytes() != want_p.tobytes():
+            raise AssertionError(f"{label}: keys or payload differ from the stable "
+                                 "argsort-gather on the card")
+        if tr.counters.get("verify_runs") != 1 or tr.counters.get("verify_failures"):
+            raise AssertionError(f"{label}: record verification {tr.counters}")
+        note = (f"{label}: equal to the stable argsort-gather, {secs:.3f} s host wall "
+                f"= {x.size / secs / 1e6:.1f} Mkeys/s (encode, record fingerprint, "
+                "copy, sort + gather, fetch, verify, decode)")
+        slice_notes.append(note)
+        log(f"[main] {note}")
+
+    def records_path() -> None:
+        x = int32_keys(1 << 25)
+        record_case("sort(np int32 2^25, payload=uint64 row ids)", x,
+                    np.arange(x.size, dtype=np.uint64))
+        x = rng.integers(-(2**63), 2**63 - 1, 1 << 24, dtype=np.int64)
+        record_case("sort(np int64 2^24, payload=10-byte records)", x,
+                    rng.integers(0, 256, (x.size, 10), dtype=np.uint8))
+        # 2^10 distinct keys plus keys whose word is all ones, which tie with
+        # the 5 pad lanes of the 2^24 bucket (a real record wins by index)
+        x = rng.integers(0, 1 << 10, (1 << 24) - 5).astype(np.int32)
+        x[rng.integers(0, x.size, 1 << 16)] = np.iinfo(np.int32).max
+        record_case("sort(np int32 2^24-5 with 2^10 distinct keys and all-ones keys, "
+                    "payload=uint64 row ids)", x, np.arange(x.size, dtype=np.uint64))
+        del x
+
+    def packed_path() -> None:
+        for dtype in (np.int32, np.int64, np.float32):
+            cuts = np.sort(rng.choice(np.arange(1, 1 << 16), 63, replace=False))
+            sizes = np.diff(np.concatenate([[0], cuts, [1 << 16]]))
+            arrays = []
+            for sz in sizes:
+                if dtype == np.float32:
+                    arrays.append(float_keys(int(sz)) if sz >= 8 else
+                                  rng.standard_normal(int(sz)).astype(dtype))
+                else:
+                    info = np.iinfo(dtype)
+                    arrays.append(rng.integers(info.min, info.max, int(sz), dtype=dtype))
+            base = dict(bitonic.LAUNCHES)
+            t = time.perf_counter()
+            batch = segmented.pack_segments(arrays, np.dtype(dtype))
+            out = segmented.run_packed(batch)
+            secs = time.perf_counter() - t
+            no_kernel(f"the packed sort ({np.dtype(dtype).name})",
+                      {k: bitonic.LAUNCHES[k] - base[k] for k in base})
+            if batch.bucket != 1 << 16 or batch.n_segments != 64:
+                raise AssertionError(f"packed batch {dtype}: bucket {batch.bucket}, "
+                                     f"{batch.n_segments} segments")
+            for got, req in zip(segmented.split_segments(batch, out), arrays):
+                if got.tobytes() != mt.sort(req).tobytes():
+                    raise AssertionError(f"packed batch {dtype}: a segment differs "
+                                         "from its own sort()")
+            if not all(segmented.verify_segments(batch, out)):
+                raise AssertionError(f"packed batch {dtype}: verification failed")
+            bad = [w.copy() for w in out]
+            bad[-1][batch.offsets[17] + 3] ^= np.uint32(1 << 20)
+            verdicts = segmented.verify_segments(batch, tuple(bad))
+            if verdicts != [i != 17 for i in range(64)]:
+                raise AssertionError(f"packed batch {dtype}: the planted bad segment "
+                                     f"gave {verdicts}")
+            note = (f"packed batch {np.dtype(dtype).name}: 64 requests, 2^16 keys, "
+                    f"pack + sort + fetch {secs * 1e3:.3f} ms host wall; every segment "
+                    "equals its own sort(), the planted bad segment alone flagged")
+            slice_notes.append(note)
+            log(f"[main] {note}")
+
+    def staged_case(label: str, x: np.ndarray) -> None:
+        tr = Tracer()
+        t = time.perf_counter()
+        st = api.ingest_to_mesh(x, mesh=mesh1, tracer=tr)
+        torch.cuda.synchronize()
+        ing = time.perf_counter() - t
+        s_ = st.stats
+        got = mt.sort(st, tracer=tr)
+        secs = time.perf_counter() - t
+        if got.tobytes() != card_sort_oracle(x)().tobytes():
+            raise AssertionError(f"{label}: output differs from torch.sort on the card")
+        names = {sp.name for sp in tr.spans.spans}
+        if not {"ingest.parse", "ingest.encode", "ingest.transfer",
+                "ingest.pipeline"} <= names or tr.counters.get("verify_runs") != 1:
+            raise AssertionError(f"{label}: spans {sorted(names)}, {tr.counters}")
+        note = (f"{label}: ingest {ing:.3f} s ({s_.chunks} chunks of 2^22, engine "
+                f"{s_.encode_engine}: parse {s_.parse_s:.3f} s, encode {s_.encode_s:.3f} "
+                f"s, transfer {s_.transfer_s:.3f} s, pipeline wall {s_.wall_s:.3f} s, "
+                f"overlap_efficiency {s_.overlap_efficiency():.4f}); ingest + sort + "
+                f"verify + decode {secs:.3f} s host wall")
+        slice_notes.append(note)
+        log(f"[main] {note}")
+
+    donation: dict[str, tuple[int, int]] = {}
+
+    def staged_path() -> None:
+        x = int32_keys(1 << 28)
+        staged_case("ingest_to_mesh(np int32 2^28, make_mesh(1)) + sort(staged)", x)
+        # SORT_DONATE: the staged one-rank sort's card memory high-water
+        for donate in ("0", "1"):
+            with env(SORT_DONATE=donate):
+                st = api.ingest_to_mesh(x, mesh=mesh1)
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                res = mt.sort(st, return_result=True)
+                sync()
+                peak = torch.cuda.max_memory_allocated()
+                if st.consumed != (donate == "1"):
+                    raise AssertionError(f"SORT_DONATE={donate}: consumed={st.consumed}")
+                donation[donate] = (before, peak)
+                del res, st
+        for donate, (before, peak) in donation.items():
+            note = (f"staged one-rank int32 2^28 sort, SORT_DONATE={donate}: "
+                    f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB), "
+                    f"{peak - before} B above the staged words' {before} B")
+            slice_notes.append(note)
+            log(f"[main] {note}")
+        del x
+        x = rng.integers(-(2**63), 2**63 - 1, 1 << 27, dtype=np.int64)
+        staged_case("ingest_to_mesh(np int64 2^27, make_mesh(1)) + sort(staged)", x)
+        del x
+
+    def ext_record_path() -> None:
+        n, width, budget = 1 << 22, 8, 1 << 22
+        x = int32_keys(n)
+        pay = rng.integers(0, 256, (n, width), dtype=np.uint8)
+        from mpitest_tpu_torch.store import external as ext
+        chunk = ext.spill_chunk_elems(budget, x.dtype, width)
+        runs = -(-n // chunk)
+        fanin, level, passes = ext._fanin(), runs, 1
+        while level > fanin:
+            level, passes = -(-level // fanin), passes + 1
+        tr = Tracer()
+        with tempfile.TemporaryDirectory() as sd:
+            t = time.perf_counter()
+            res = mt.external_sort(x, pay, budget=budget, spill_dir=sd, tracer=tr)
+            wall = time.perf_counter() - t
+        want_k, want_p = mt.sort(x, payload=pay)
+        if res.keys.tobytes() != want_k.tobytes() or res.payload.tobytes() != \
+                want_p.tobytes():
+            raise AssertionError("external record leg: keys or payload differ from "
+                                 "the in-memory record sort")
+        if (res.runs, res.merge_passes) != (runs, passes):
+            raise AssertionError(f"external record leg: {res.runs} runs, "
+                                 f"{res.merge_passes} passes != {runs}, {passes}")
+        ext_walls["external_sort(np int32 2^22, payload=8 bytes, budget 4 MiB)"] = wall
+        note = (f"external_sort(np int32 2^22, payload=8 bytes, budget 4 MiB): equal "
+                f"to the in-memory record sort, {res.runs} runs of {chunk}, "
+                f"{res.merge_passes} merge passes (as computed from the budget), "
+                f"wall {wall:.3f} s")
+        slice_notes.append(note)
+        log(f"[main] {note}")
+
     main_launches = run_path("the main path (sort(), auto)", (K1, K2, K3), main_path)
     radix_launches = run_path("sort() under radix_pallas", (K4, K4H), radix_path)
     run_path("the key-file CLI", (K1, K4, K4H), cli_path)
@@ -862,6 +1083,18 @@ def main() -> int:
     k8_launches = run_path("external_sort() under radix_pallas", (K4, K4H, K8),
                            external_k8_path)
     run_path("the CLI's external leg", (K1, K6, K7), cli_external_path)
+    t_slice = time.perf_counter()
+    no_kernel("the record sorts", run_path("the record sorts", (), records_path))
+    run_path("the packed batch", (), packed_path)
+    staged_launches = run_path("the staged one-rank routes", (K1, K2, K3), staged_path)
+    if (staged_launches[K1], staged_launches[K2], staged_launches[K3]) != (3, 1, 1):
+        raise AssertionError(f"staged one-rank routes: K1/K2/K3 launches "
+                             f"{staged_launches} != 3 (one per int32 sort), 1, 1")
+    no_kernel("the external record leg",
+              run_path("the external record leg", (), ext_record_path))
+    slice_wall = time.perf_counter() - t_slice
+    log(f"[main] phase 3i (records, packed batch, staged routes, external record "
+        f"leg) wall {slice_wall:.3f} s")
     path_launches = {K1: main_launches[K1], K2: main_launches[K2],
                      K3: main_launches[K3], K4: radix_launches[K4],
                      K5: lax_launches[K5], K6: mesh_launches[K6],
@@ -1170,6 +1403,10 @@ def main() -> int:
         f"{x.numel() / ms / 1e3:.1f} Mkeys/s | card {card}")
     del x
 
+    for note in slice_notes:
+        log(f"[timing] {note} | card {card}")
+    log(f"[timing] phase 3i wall {slice_wall:.3f} s; smoke total wall "
+        f"{time.perf_counter() - t_smoke:.3f} s | card {card}")
     log(f"[card] {card}")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

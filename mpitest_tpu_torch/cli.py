@@ -71,7 +71,8 @@ EXIT_RETRIES = 4
 _UNPORTED_KNOBS = ("SORT_FAULTS", "SORT_METRICS", "SORT_TRACE", "SORT_PROFILE")
 
 #: Knobs read later in the run, validated up front so garbage fails here.
-_VALIDATED = ("SORT_INGEST_CHUNK", "SORT_INGEST_THREADS", "SORT_NATIVE_ENCODE",
+_VALIDATED = ("SORT_INGEST", "SORT_INGEST_CHUNK", "SORT_INGEST_THREADS",
+              "SORT_DONATE", "SORT_NATIVE_ENCODE",
               "SORT_VERIFY", "SORT_LOCAL_ENGINE", "SORT_MEM_BUDGET",
               "SORT_SPILL_DIR", "SORT_MERGE_FANIN", "SORT_SPILL_COMPRESS",
               "SORT_SPILL_THROTTLE_MBPS", "SORT_EXCHANGE_ENGINE",
@@ -189,7 +190,7 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
         res = api.sort(keys, algorithm=algo, tracer=tracer, return_result=True,
                        mesh=mesh, digit_bits=digit_bits, cap_factor=cap_factor,
                        oversample=oversample)
-        out = res.to_numpy()
+        out = res.to_numpy(tracer=tracer)
     except SortIntegrityError as e:
         _error(f"sort integrity failure: {e}")
         return EXIT_INTEGRITY

@@ -43,9 +43,21 @@ K4).  Inside the distributed radix, ``radix_pallas`` runs pass 1 with
 K4; inside sample sort the resolved engine sorts the shards and the
 merge.
 
+Host input of at least ``models/ingest.STREAM_MIN_BYTES`` on more than
+one rank streams (``SORT_INGEST``): chunked encode on host threads, pinned
+copies on a side stream into preallocated shards, the pass planner's
+diffs and the fingerprint folded in flight.  :func:`ingest_to_mesh` runs
+the same pipeline ahead of the sort and returns a :class:`StagedIngest`,
+which ``sort`` takes in place of keys (on one rank: one local sort of the
+staged words).  ``SORT_DONATE`` (auto: on a card) drops the staged words
+once the first dispatch has read them; a rerun rebuilds them.  A
+contiguous result of several shards streams its egress
+(``DistributedSortResult.to_numpy(tracer)``).  ``payload=`` is the
+record sort of ``models/records.py``.
+
 Not ported here: the degradation ladder, fault hooks, plan records and
-the planner, buffer donation and streamed ingest.  A failed verification
-raises :class:`SortIntegrityError`; a kernel that fails raises.
+the planner.  A failed verification raises :class:`SortIntegrityError`;
+a kernel that fails raises.
 """
 
 from __future__ import annotations
@@ -58,6 +70,13 @@ import numpy as np
 import torch
 
 from mpitest_tpu_torch.models import radix_sort, sample_sort
+from mpitest_tpu_torch.models.ingest import (
+    EGRESS_MIN_BYTES,
+    StagedIngest,
+    stream_result_to_numpy,
+    stream_to_mesh,
+    use_stream,
+)
 from mpitest_tpu_torch.models import supervisor as supervision
 from mpitest_tpu_torch.models import verify as vfy
 from mpitest_tpu_torch.models.supervisor import (  # re-exported: public errors
@@ -78,11 +97,13 @@ from mpitest_tpu_torch.ops.keys import (
 )
 from mpitest_tpu_torch.ops.pack import CHUNK
 from mpitest_tpu_torch.parallel.mesh import Mesh
+from mpitest_tpu_torch.utils import io as kio
 from mpitest_tpu_torch.utils import knobs
 from mpitest_tpu_torch.utils.trace import Tracer
 
 __all__ = ["DistributedSortResult", "SortFaultError", "SortIntegrityError",
-           "SortRetryExhausted", "resolve_device", "sort"]
+           "SortRetryExhausted", "StagedIngest", "ingest_to_mesh",
+           "resolve_device", "sort"]
 
 Words = tuple[torch.Tensor, ...]
 
@@ -113,10 +134,22 @@ class DistributedSortResult:
             return [int(s[0].numel()) if s else 0 for s in self.shards]
         return [int(c) for c in self.counts]
 
-    def to_numpy(self) -> np.ndarray:
+    def to_numpy(self, tracer: Tracer | None = None) -> np.ndarray:
+        """The valid keys on the host.  A contiguous result of more than
+        one shard streams its egress (``models/ingest.py``) under
+        ``SORT_INGEST=stream``, or under ``auto`` from
+        :data:`EGRESS_MIN_BYTES` of keys: shard k+1 copies to the host
+        while shard k decodes (``egress.*`` spans on ``tracer``).  Ragged
+        (sample) results and ``mono`` take the plain gather."""
         if self.n_valid == 0:
             return np.empty(0, self.dtype)
         codec = codec_for(self.dtype)
+        if self.counts is None and len(self.shards) > 1:
+            mode = kio.ingest_mode()
+            nbytes = self.n_valid * np.dtype(self.dtype).itemsize
+            if mode == "stream" or (mode == "auto" and nbytes >= EGRESS_MIN_BYTES):
+                return stream_result_to_numpy(self.shards, self.n_valid,
+                                              self.dtype, tracer=tracer)
         parts = [tuple(to_host_words(w[:v]) for w in shard)
                  for shard, v in zip(self.shards, self._valid())]
         return codec.decode(tuple(np.concatenate([p[k] for p in parts])[: self.n_valid]
@@ -282,23 +315,58 @@ def resolve_device(x: Any, device: torch.device | str | None) -> torch.device:
     return torch.device("cuda")
 
 
+def _donation_enabled(devices: "tuple[torch.device, ...]") -> bool:
+    """``SORT_DONATE`` (``utils.io.donate_setting``): ``auto`` donates when
+    the ranks are on a card, where dropping the staged words lets the
+    caching allocator reuse their memory (the reference donates on its
+    accelerator only); ``1`` and ``0`` force it."""
+    v = kio.donate_setting()
+    if v == "auto":
+        return any(d.type == "cuda" for d in devices)
+    return v == "1"
+
+
+def ingest_to_mesh(x: Any, mesh: Mesh | None = None, tracer: Tracer | None = None,
+                   chunk_elems: int | None = None,
+                   threads: int | None = None) -> StagedIngest:
+    """Run the streamed ingest (``models/ingest.py``: chunked parse, encode
+    and pinned copies on a side stream) over host keys ``x`` onto ``mesh``
+    (default: one rank on the card) and return the :class:`StagedIngest`
+    that :func:`sort` takes in place of raw keys.  The ``ingest.*`` spans
+    land on ``tracer`` under an ``ingest`` span."""
+    if mesh is None:
+        from mpitest_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(1)
+    tracer = tracer or Tracer()
+    arr = np.asarray(x)
+    with tracer.spans.span("ingest", n=int(arr.size), dtype=str(arr.dtype)):
+        return stream_to_mesh(arr, mesh, tracer=tracer, chunk_elems=chunk_elems,
+                              threads=threads)
+
+
 def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
          digit_bits: int | None = None, cap_factor: float = 2.0,
          oversample: int | None = None, tracer: Tracer | None = None,
          return_result: bool = False, pack: str | None = None,
-         exchange_engine: str | None = None, *,
+         exchange_engine: str | None = None, payload: Any = None, *,
          device: torch.device | str | None = None) -> Any:
     """Sort keys on one card, or across the ranks of ``mesh``; returns a
     sorted numpy array (or the device-resident
     :class:`DistributedSortResult`).
 
-    The positional parameters are the reference's, in its order (its
-    ``payload``, the record sort, is not ported); ``device`` is
-    keyword-only.
+    The positional parameters are the reference's, in its order;
+    ``device`` is keyword-only.
 
-    ``x`` is a host array (numpy or anything ``np.asarray`` takes) or a
+    ``x`` is a host array (numpy or anything ``np.asarray`` takes), a
     ``torch.Tensor`` (device-resident keys; moved to ``device``, or to the
-    mesh's first rank, if it lies elsewhere).  2-D input flattens.
+    mesh's first rank, if it lies elsewhere), or a :class:`StagedIngest`
+    from :func:`ingest_to_mesh` (encoded, padded words on its own mesh).
+    2-D input flattens.  A host array of at least 32 MiB on more than one
+    rank streams through the same pipeline (``SORT_INGEST``:
+    auto/stream/mono).  Under ``SORT_DONATE`` (auto: on a card) the sort
+    drops staged words once its first dispatch has read them; a
+    :class:`StagedIngest` is then single-use (``consumed``).
     ``algorithm`` is ``"radix"`` or ``"sample"``; on one rank both take
     the same local path, as in the reference.  ``mesh``
     (``parallel.mesh.make_mesh``) with more than one rank runs the
@@ -311,16 +379,49 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
     :class:`SortIntegrityError`.  ``return_result`` keeps the result on
     the card.  ``pack`` is ``"pallas"`` (K5, the default) or ``"xla"``
     (plain scatter), and ``exchange_engine`` defaults to the
-    ``SORT_EXCHANGE_ENGINE`` knob.  ``device`` names the card (or
-    ``"cpu"``) of a run without a mesh; ``device`` and ``mesh`` exclude
-    each other."""
+    ``SORT_EXCHANGE_ENGINE`` knob.
+
+    ``payload`` turns the call into a record sort
+    (``models/records.py``): each key carries an opaque payload (bytes,
+    an ``(n, width)`` uint8 matrix, or any fixed-itemsize array of n
+    elements) permuted with the keys, stable by key, verified by the
+    record fingerprint; the call returns ``(sorted_keys, sorted_payload)``
+    with the payload as an ``(n, width)`` uint8 matrix, and
+    ``return_result`` and ``exchange_engine`` do not apply.
+
+    ``device`` names the card (or ``"cpu"``) of a run without a mesh;
+    ``device`` and ``mesh`` exclude each other."""
     if algorithm not in ("radix", "sample"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if mesh is not None and device is not None:
         raise ValueError("pass either device or mesh, not both")
     tracer = tracer or Tracer()
-    size = getattr(x, "numel", None)
-    n = int(size()) if callable(size) else int(np.asarray(x).size)
+    if payload is not None:
+        from mpitest_tpu_torch.models import records
+
+        arr = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+               else np.asarray(x))
+        with tracer.spans.span("sort", algorithm="records", n=int(arr.size),
+                               dtype=str(arr.dtype)):
+            return records.sort_records(arr, payload, mesh=mesh, tracer=tracer,
+                                        device=device)
+    if isinstance(x, StagedIngest):
+        if x.consumed:
+            raise ValueError(
+                "StagedIngest was already consumed by a donated sort "
+                "dispatch (its word buffers were released); call "
+                ".rebuild() or ingest_to_mesh() again for another sort")
+        if device is not None:
+            raise ValueError("a StagedIngest sorts on its own mesh; do not "
+                             "pass device")
+        if mesh is None:
+            mesh = x.mesh
+        elif mesh != x.mesh:
+            raise ValueError("StagedIngest was streamed onto a different mesh")
+        n = x.n_valid
+    else:
+        size = getattr(x, "numel", None)
+        n = int(size()) if callable(size) else int(np.asarray(x).size)
     if mesh is not None and mesh.size > 1:
         with tracer.spans.span("sort", algorithm=algorithm, n=n,
                                dtype=str(getattr(x, "dtype", "")) or None,
@@ -352,6 +453,8 @@ def _check_result(tracer: Tracer, res: DistributedSortResult,
 def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
                return_result: bool, exchange_engine: str | None = None) -> Any:
     """The one-rank branch of the reference's ``_sort_impl``."""
+    if isinstance(x, StagedIngest):
+        return _sort_staged_local(x, device, tracer, return_result, exchange_engine)
     is_device = isinstance(x, torch.Tensor)
     if is_device:
         if x.device != device:
@@ -379,7 +482,7 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
         if return_result:
             return res
         with tracer.phase("decode"):
-            return res.to_numpy()
+            return res.to_numpy(tracer=tracer)
 
     fp_in = None
     if (codec.n_words == 2 and engine != "lax"
@@ -423,6 +526,43 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
         with tracer.phase("sort"):
             out = kernels.local_sort(words, engine=resolved, diffs=diffs)
     return _finish_local(DistributedSortResult(out, N, dtype), fp_in)
+
+
+def _sort_staged_local(staged: StagedIngest, device: torch.device, tracer: Tracer,
+                       return_result: bool, exchange_engine: str | None) -> Any:
+    """The reference's staged one-rank route (``api.py:1452-1467``): one
+    local sort of the staged words with the resolved engine (K1 for one
+    word, the pair engine K2 + K3 with its residual fallback for two, K4
+    under ``radix_pallas`` with the pass plan compacted from the
+    ingest's ``word_diffs``), verified against the ingest's fingerprint.
+    Under donation the staged words are dropped once the sort has read
+    them."""
+    dtype = staged.dtype
+    codec = codec_for(dtype)
+    N = staged.n_valid
+    verify_on = supervision.verify_enabled()
+    tracer.counters["exchange_engine"] = _resolve_exchange_engine(exchange_engine)
+    words = staged.words[0]
+    resolved = _resolve_local_engine(_local_engine(), codec.n_words,
+                                     int(words[0].numel()))
+    diffs = (tuple((1 << int(d).bit_length()) - 1 for d in staged.word_diffs)
+             if resolved == "radix_pallas" and staged.word_diffs is not None
+             else None)
+    donate = _donation_enabled((device,))
+    if donate:
+        staged.consumed = True
+    with tracer.phase("sort"):
+        out = kernels.local_sort(words, engine=resolved, diffs=diffs)
+    if donate:
+        staged.words = []
+    del words   # the last reference here: the verifier runs without them
+    res = DistributedSortResult(out, N, dtype)
+    if verify_on and not _check_result(tracer, res, staged.fingerprint):
+        raise SortIntegrityError("single-device sort result failed verification")
+    if return_result:
+        return res
+    with tracer.phase("decode"):
+        return res.to_numpy(tracer=tracer)
 
 
 # ------------------------------------------------------ the distributed branch
@@ -637,8 +777,12 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     for dev in mesh.devices:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"mesh rank on {dev} needs CUDA and none is available")
+    staged = x if isinstance(x, StagedIngest) else None
     is_device = isinstance(x, torch.Tensor)
-    if is_device:
+    if staged is not None:
+        dtype = staged.dtype
+        N = staged.n_valid
+    elif is_device:
         if x.device not in mesh.devices:
             x = x.to(mesh.devices[0])
         dtype = numpy_dtype(x.dtype)
@@ -660,25 +804,61 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
 
     words_np = None
     dev_words: Words | None = None
-    if is_device:
+    #: per-word max ^ min folded by a streamed ingest (the pass planner's
+    #: input without another pass over the keys)
+    plan_diffs: tuple[int, ...] | None = None
+    #: input fingerprint folded from the host chunks of a streamed ingest
+    #: (None when the ingest ran with verification off)
+    stream_fp: vfy.Fingerprint | None = None
+    #: re-creates the sharded words after a donated dispatch dropped them
+    rebuild_words = None
+    if staged is not None:
+        words = staged.words
+        plan_diffs = staged.word_diffs
+        stream_fp = staged.fingerprint
+        if staged.source is not None:
+            rebuild_words = lambda: staged.rebuild().words  # noqa: E731
+    elif is_device:
         with tracer.phase("encode"):
             dev_words, words = _device_shards(x, codec, dtype, mesh, n)
+        rebuild_words = lambda: _device_shards(x, codec, dtype, mesh, n)[1]  # noqa: E731
     else:
         flat = x.reshape(-1)
-        with tracer.phase("encode"):
-            words_np = codec.encode(flat)
-            pad = _host_pad_words(codec, flat, dtype, n_ranks * n)
-        with tracer.phase("device_put"):
-            words = _shard_input(words_np, mesh, n, pad)
+        if use_stream(flat.nbytes):
+            # streamed ingest: chunked encode overlapped with the copies,
+            # the planner's diffs and the fingerprint folded in flight
+            with tracer.phase("ingest"):
+                st = stream_to_mesh(flat, mesh, tracer=tracer)
+            words = st.words
+            plan_diffs = st.word_diffs
+            stream_fp = st.fingerprint
+            rebuild_words = lambda: stream_to_mesh(flat, mesh, tracer=tracer).words  # noqa: E731
+            del st
+        else:
+            with tracer.phase("encode"):
+                words_np = codec.encode(flat)
+                pad = _host_pad_words(codec, flat, dtype, n_ranks * n)
+            with tracer.phase("device_put"):
+                words = _shard_input(words_np, mesh, n, pad)
+            rebuild_words = lambda: _shard_input(words_np, mesh, n, pad)  # noqa: E731
 
     pack_impl = _resolve_pack(pack)
     _, align = _engine_pack(pack_impl, eng)
+    # drop the input words once a dispatch has read them, where that frees
+    # card memory and the words can be rebuilt for a rerun
+    donate = _donation_enabled(mesh.devices) and rebuild_words is not None
+    if donate and staged is not None:
+        staged.consumed = True
     sup = SortSupervisor(tracer)
     input_fp = None
     if verify_on:
         with tracer.phase("verify"):
-            input_fp = (vfy.fingerprint_host(words_np) if words_np is not None
-                        else vfy.fingerprint_device(words, N))
+            if words_np is not None:
+                input_fp = vfy.fingerprint_host(words_np)
+            elif is_device:
+                input_fp = vfy.fingerprint_device(words, N)
+            else:   # staged or streamed: folded from the host chunks
+                input_fp = stream_fp
 
     fair = max(1, -(-n // n_ranks))
     base_cap = _round_cap(int(n / n_ranks * cap_factor) + 1, align)
@@ -692,11 +872,29 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     state = {"words": words, "restaged": False, "plan": None}
     del words
 
+    def live_words() -> list[Words]:
+        """The input shards, rebuilt (and re-interleaved, if the run
+        re-staged) after a donated dispatch dropped them."""
+        if state["words"] is None:
+            w = rebuild_words()
+            if state["restaged"]:
+                w = _interleave(w, mesh)
+            state["words"] = w
+        return state["words"]
+
+    def mark_dead() -> None:
+        nonlocal dev_words
+        if donate:
+            state["words"] = None
+            dev_words = None
+            if staged is not None:
+                staged.words = []
+
     def do_restage() -> None:
         if state["restaged"]:
             return
         with tracer.spans.span("restage", ranks=n_ranks, n=n):
-            state["words"] = _interleave(state["words"], mesh)
+            state["words"] = _interleave(live_words(), mesh)
         state["restaged"] = True
         tracer.count("skew_restage", 1)
         tracer.verbose("skew re-stage: interleaved shards to rebalance the exchange")
@@ -704,8 +902,13 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     def radix_plan() -> tuple[int, int]:
         if state["plan"] is None:
             with tracer.phase("plan"):
-                diffs = (_word_diffs(words_np) if words_np is not None
-                         else _device_diffs(dev_words))
+                if plan_diffs is not None:
+                    diffs = plan_diffs
+                elif words_np is not None:
+                    diffs = _word_diffs(words_np)
+                else:
+                    diffs = _device_diffs(dev_words if dev_words is not None
+                                          else codec.encode_torch(x.reshape(-1)))
                 db = digit_bits if digit_bits is not None else _auto_digit_bits(diffs)
                 state["plan"] = (db, _passes_from_diffs(diffs, db))
         return state["plan"]
@@ -731,9 +934,9 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
 
     def probe(kind: str, db: int | None) -> np.ndarray:
         with tracer.phase("plan"):
-            m = (radix_sort.radix_probe_spmd(state["words"], db, n_ranks)
+            m = (radix_sort.radix_probe_spmd(live_words(), db, n_ranks)
                  if kind == "radix" else
-                 sample_sort.sample_probe_spmd(state["words"], n_ranks, oversample))
+                 sample_sort.sample_probe_spmd(live_words(), n_ranks, oversample))
             return m.cpu().numpy()
 
     def negotiate_counts(kind: str, db: int | None = None) -> np.ndarray:
@@ -764,8 +967,9 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         def attempt(c: int) -> tuple[object, int]:
             with tracer.phase("sort"):
                 out, max_cnt = radix_sort.radix_sort_spmd(
-                    state["words"], codec.n_words, db, n_ranks, c, passes,
+                    live_words(), codec.n_words, db, n_ranks, c, passes,
                     pack=eff_pack, exchange_engine=eng, local_engine=radix_leng)
+                mark_dead()
                 max_cnt = int(max_cnt)
             tracer.count("exchange_bytes",
                          passes * n_ranks * (n_ranks - 1) * c * 4 * codec.n_words)
@@ -789,7 +993,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         if words_np is not None:
             degenerate = _sample_skew_sniff(words_np, n_ranks)
         else:
-            degenerate = _device_skew_sniff(state["words"], N, n_ranks)
+            degenerate = _device_skew_sniff(live_words(), N, n_ranks)
         if degenerate:
             return reroute("quantile splitters degenerate (heavy duplication)")
         cap_limit = _round_cap(SAMPLE_CAP_LIMIT_FACTOR * fair, eff_align)
@@ -807,8 +1011,9 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         def attempt(c: int) -> tuple[object, int]:
             with tracer.phase("sort"):
                 out, counts, max_cnt = sample_sort.sample_sort_spmd(
-                    state["words"], codec.n_words, n_ranks, c, oversample,
+                    live_words(), codec.n_words, n_ranks, c, oversample,
                     pack=eff_pack, engine=spmd_engine, exchange_engine=eng)
+                mark_dead()
                 max_cnt = int(max_cnt)
             tracer.count("exchange_bytes",
                          n_ranks * (n_ranks - 1) * c * 4 * codec.n_words)
@@ -833,4 +1038,4 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     if return_result:
         return res
     with tracer.phase("decode"):
-        return res.to_numpy()
+        return res.to_numpy(tracer=tracer)

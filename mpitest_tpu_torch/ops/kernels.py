@@ -5,9 +5,11 @@ the helpers of the distributed sorts (port of
 Words are ``torch.int32`` tensors of raw uint32 bits (``ops/keys.py``).
 The ``lax`` engine is the reference's ``lax.sort``, which sits outside
 any Pallas kernel: here it is ``torch.sort``, with a two-word key sorted
-as one int64 built from the words.  The ``bitonic`` engine runs the CUDA
-kernels of ``ops/bitonic.py`` and the ``radix_pallas`` engine the fused
-radix kernel of ``ops/radix.py`` (or their plain versions on the CPU).
+as one int64 built from the words and a wider key (a segment or index
+word beside a 64-bit key) as stable passes over two-word groups.  The
+``bitonic`` engine runs the CUDA kernels of ``ops/bitonic.py`` and the
+``radix_pallas`` engine the fused radix kernel of ``ops/radix.py`` (or
+their plain versions on the CPU).
 The helpers at the end (digits, histograms, step functions, splitter
 search, samples) are plain torch ops, as the reference's are XLA ops.
 """
@@ -25,15 +27,27 @@ ENGINES = ("bitonic", "lax", "radix_pallas")
 
 
 def _lax_sort(words: Words, stable: bool) -> Words:
-    """``lax.sort`` of one or two words, lexicographic, msw first: one
-    ``torch.sort`` of the ordered key."""
-    return from_ordered_key(torch.sort(_ordered_key(words), stable=stable).values,
-                            len(words))
+    """``lax.sort`` of any number of words, lexicographic, msw first.  One
+    or two words: one ``torch.sort`` of the ordered key.  Wider keys: LSD
+    over two-word groups, least significant first, each a stable
+    ``torch.sort`` of the group's ordered key under the permutation so
+    far; the last group decides, earlier ones break its ties, so the
+    result is the lexicographic order (stable whatever ``stable`` says)."""
+    if len(words) <= 2:
+        return from_ordered_key(torch.sort(_ordered_key(words), stable=stable).values,
+                                len(words))
+    perm = None
+    for hi in range(len(words), 0, -2):
+        group = words[max(0, hi - 2):hi]
+        key = _ordered_key(group if perm is None else tuple(w[perm] for w in group))
+        idx = torch.sort(key, stable=True).indices
+        perm = idx if perm is None else perm[idx]
+    return tuple(w[perm] for w in words)
 
 
 def local_sort(words: Words, engine: str = "lax",
                diffs: tuple[int, ...] | None = None) -> Words:
-    """Lexicographic sort of one- or two-word keys (msw first).
+    """Lexicographic sort of multi-word keys (msw first).
 
     ``engine="bitonic"`` routes one-word keys through the bitonic network
     (K1) and two-word keys through the pair engine (K2 + K3) with its
@@ -43,7 +57,8 @@ def local_sort(words: Words, engine: str = "lax",
     (msw-first per-word value spreads, host-static) compacts its pass plan
     and is ignored by the other engines.  ``words`` is always the full
     key, so stability is unobservable and the unstable network is an
-    exact drop-in for the stable sort."""
+    exact drop-in for the stable sort.  Keys of more than two words take
+    the ``lax`` form under ``bitonic``, as in the reference."""
     if engine not in ENGINES:
         raise ValueError(f"unknown local engine {engine!r}; use one of {ENGINES}")
     if engine == "radix_pallas":

@@ -94,3 +94,16 @@ def shard_bounds(mesh: Mesh, n_per_shard: int) -> list[tuple[torch.device, int, 
     rank r owns ``[r*n, (r+1)*n)``."""
     return [(d, i * n_per_shard, (i + 1) * n_per_shard)
             for i, d in enumerate(mesh.devices)]
+
+
+def alloc_shards(mesh: Mesh, n_per_shard: int,
+                 n_words: int) -> list[tuple[torch.Tensor, ...]]:
+    """Preallocated per-rank word planes (int32 carriers of uint32 words),
+    ``n_words`` of ``n_per_shard`` each on every rank's device: the
+    port's sharded form of the keys, which the streamed ingest fills in
+    place chunk by chunk (the counterpart of the reference's
+    ``assemble_sharded``, which glues per-device pieces into one global
+    array)."""
+    return [tuple(torch.empty(n_per_shard, dtype=torch.int32, device=d)
+                  for _ in range(n_words))
+            for d in mesh.devices]

@@ -4,7 +4,8 @@ k-way merge (port of ``mpitest_tpu/store/external.py``).
 The in-memory path is bounded by device and host memory; this path is
 bounded by disk.  The input partitions into ``SORT_MEM_BUDGET``-sized
 chunks; each chunk rides the ordinary verified sort (``models/api.sort``
-on the card, or over ``mesh``) and spills to a sorted run
+on the card, or over ``mesh``; the record sort of ``models/records.py``
+when a payload rides) and spills to a sorted run
 (``store/runs.py``: SORTBIN1 or SORTRUN2 framing + fingerprint sidecar);
 the runs then stream through the bounded k-way merge
 (``store/merge.py``), at most ``SORT_MERGE_FANIN`` at a time (more runs
@@ -60,7 +61,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from mpitest_tpu_torch.models.records import words_to_payload
+from mpitest_tpu_torch.models.records import as_payload_matrix, words_to_payload
 from mpitest_tpu_torch.models.segmented import lex_sorted_host
 from mpitest_tpu_torch.models.supervisor import SortIntegrityError
 from mpitest_tpu_torch.ops.keys import codec_for
@@ -69,7 +70,6 @@ from mpitest_tpu_torch.store import manifest as mfstlib
 from mpitest_tpu_torch.store import merge as mergelib
 from mpitest_tpu_torch.store import runs as runlib
 from mpitest_tpu_torch.utils import knobs
-from mpitest_tpu_torch.utils.knobs import NotPortedError
 from mpitest_tpu_torch.utils.trace import Tracer
 
 #: Host-memory multiplier per record during partition/sort: the raw
@@ -160,28 +160,32 @@ def merge_chunk_elems(budget: int, dtype: np.dtype, payload_width: int,
     return max(MIN_CHUNK_ELEMS, per_run)
 
 
-def _sort_chunk(keys: np.ndarray, algorithm: str, device: torch.device,
-                mesh: Any, tracer: Any) -> np.ndarray:
-    """One verified sort of a partition chunk: over ``mesh`` when given,
-    else on ``device``."""
+def _sort_chunk(keys: np.ndarray, pay: np.ndarray | None, algorithm: str,
+                device: torch.device, mesh: Any, tracer: Any,
+                ) -> tuple[np.ndarray, np.ndarray | None]:
+    """One verified sort of a partition chunk (a record sort when ``pay``
+    rides): over ``mesh`` when given, else on ``device``."""
     from mpitest_tpu_torch.models import api
 
-    return api.sort(np.asarray(keys), algorithm=algorithm,
-                    device=None if mesh is not None else device, mesh=mesh,
-                    tracer=tracer)
+    on = dict(device=None if mesh is not None else device, mesh=mesh,
+              tracer=tracer)
+    if pay is not None:
+        out_k, out_p = api.sort(keys, algorithm=algorithm, payload=pay, **on)
+        return out_k, out_p
+    return api.sort(np.asarray(keys), algorithm=algorithm, **on), None
 
 
 def _spans(tracer: Any):
     return tracer.spans if tracer is not None else None
 
 
-def _spill_one(idx: int, keys: np.ndarray, spill_dir: str, algorithm: str,
-               device: torch.device, mesh: Any, tracer: Any,
-               durable: bool = False) -> "runlib.RunInfo":
+def _spill_one(idx: int, keys: np.ndarray, pay: np.ndarray | None,
+               spill_dir: str, algorithm: str, device: torch.device, mesh: Any,
+               tracer: Any, durable: bool = False) -> "runlib.RunInfo":
     t0 = time.perf_counter()
-    out_k = _sort_chunk(keys, algorithm, device, mesh, tracer)
+    out_k, out_p = _sort_chunk(keys, pay, algorithm, device, mesh, tracer)
     info = runlib.write_run(spill_dir, f"r{os.getpid():x}_{idx:05d}",
-                            out_k, durable=durable)
+                            out_k, out_p, durable=durable)
     spans = _spans(tracer)
     if spans is not None:
         spans.record("external.run", t0, time.perf_counter() - t0,
@@ -265,11 +269,11 @@ def external_sort(
     out_name: str = "merged",
     dataset: str | None = None,
 ) -> ExternalResult:
-    """Externally sort host keys ``x`` under a byte ``budget`` (default
-    ``SORT_MEM_BUDGET``; must be > 0 — the external path never engages
-    implicitly).  The chunk sorts run on ``device`` or over ``mesh``
-    (they exclude each other; default the card).  ``payload`` (record
-    sorts) is not ported yet and raises :class:`NotPortedError`.
+    """Externally sort host keys ``x`` (with per-record ``payload`` bytes,
+    the record sort of ``models/records.py``, when given) under a byte
+    ``budget`` (default ``SORT_MEM_BUDGET``; must be > 0 — the external
+    path never engages implicitly).  The chunk sorts run on ``device`` or
+    over ``mesh`` (they exclude each other; default the card).
 
     ``dataset`` opts the sort into the crash-durable path: every spilled
     run commits durably and is journaled in a manifest keyed by the id,
@@ -282,21 +286,19 @@ def external_sort(
     ``"file"`` streams it into one raw output run (``result.out_run``); a
     callable receives each decoded ``(keys_chunk, None)`` in order (the
     CLI's streamed median probe)."""
-    if payload is not None:
-        raise NotPortedError(
-            "external_sort(payload=...): record chunk sorts need "
-            "sort_records, which is not ported yet (ROADMAP Queue 1, item "
-            "10); sort bare keys")
     keys = np.asarray(x).reshape(-1)
     dtype = np.dtype(keys.dtype)
     n = int(keys.size)
+    pay = as_payload_matrix(payload, n) if payload is not None else None
+    width = int(pay.shape[1]) if pay is not None else 0
 
     def chunks(chunk_elems: int) -> Iterator[
             tuple[np.ndarray, np.ndarray | None]]:
         for off in range(0, n, chunk_elems):
-            yield keys[off:off + chunk_elems], None
+            yield (keys[off:off + chunk_elems],
+                   pay[off:off + chunk_elems] if pay is not None else None)
 
-    return _external_core(chunks, n, dtype, 0, algorithm=algorithm,
+    return _external_core(chunks, n, dtype, width, algorithm=algorithm,
                           device=device, mesh=mesh, tracer=tracer,
                           budget=budget, spill_dir=spill_dir, fanin=fanin,
                           sink=sink, out_name=out_name, dataset=dataset)
@@ -434,7 +436,7 @@ def _external_core(
     n = 0
     resumed_count = 0
     try:
-        for idx, (kchunk, _pchunk) in enumerate(chunks_fn(chunk_elems)):
+        for idx, (kchunk, pchunk) in enumerate(chunks_fn(chunk_elems)):
             kchunk = np.asarray(kchunk, dtype).reshape(-1)
             if kchunk.size == 0:
                 continue
@@ -447,8 +449,8 @@ def _external_core(
                 n += int(kchunk.size)
                 resumed_count += 1
                 continue
-            info = _spill_one(idx, kchunk, spill_dir, algorithm, dev, mesh,
-                              tracer, durable=mwriter is not None)
+            info = _spill_one(idx, kchunk, pchunk, spill_dir, algorithm, dev,
+                              mesh, tracer, durable=mwriter is not None)
             if mwriter is not None:
                 mwriter.commit_run(idx, info)
             run_infos.append(info)
@@ -592,7 +594,7 @@ def _merge_with_recovery(
             i = run_infos.index(r)
             ci = chunk_of_run[i]
             src = next(islice(chunks_fn(chunk_elems), ci, ci + 1))
-            run_infos[i] = _spill_one(ci, np.asarray(src[0], dtype),
+            run_infos[i] = _spill_one(ci, np.asarray(src[0], dtype), src[1],
                                       spill_dir, algorithm, device, mesh,
                                       tracer, durable=mwriter is not None)
             if mwriter is not None:

@@ -6,8 +6,11 @@ reader reads exactly the tokens present.  SORTBIN1 is an 8-byte magic, a
 1-byte numpy dtype kind, a 1-byte itemsize, 6 pad bytes, then raw
 little-endian keys.  Text parses in blocks that end on token boundaries,
 on a ``SORT_INGEST_THREADS``-wide pool, through the engine that
-``SORT_NATIVE_ENCODE`` selects (``utils/native_encode.py``).  Host code
-only: nothing here touches a device.
+``SORT_NATIVE_ENCODE`` selects (``utils/native_encode.py``).  The
+ingest knobs (``SORT_INGEST``, ``SORT_INGEST_CHUNK``,
+``SORT_INGEST_THREADS``, ``SORT_DONATE``) are read here for the streamed
+ingest of ``models/ingest.py``.  Host code only: nothing here touches a
+device.
 """
 
 from __future__ import annotations
@@ -44,6 +47,26 @@ def ingest_chunk_elems() -> int:
 
 def ingest_threads() -> int:
     return knobs.get("SORT_INGEST_THREADS")
+
+
+INGEST_MODES = ("auto", "stream", "mono")
+
+
+def ingest_mode() -> str:
+    """``SORT_INGEST``: ``auto`` streams inputs large enough for the
+    overlap to pay (``models/ingest.use_stream``), ``stream`` forces the
+    pipeline at any size, ``mono`` the one-shot encode and copy."""
+    return knobs.get("SORT_INGEST")
+
+
+DONATE_MODES = ("auto", "1", "0")
+
+
+def donate_setting() -> str:
+    """Validated ``SORT_DONATE`` value (auto/1/0), shared by the CLI's
+    fail-fast block and the sort dispatch, which maps ``auto`` to the
+    device (``models/api.py``)."""
+    return knobs.get("SORT_DONATE")
 
 
 def read_keys_text(path: str, dtype=np.int32) -> np.ndarray:

@@ -184,12 +184,21 @@ register("SORT_DIGIT_BITS", None,
 register("SORT_NATIVE_ENCODE", "auto",
          "Native C text parser (utils/native_encode.py): auto | on | off.",
          _enum("SORT_NATIVE_ENCODE", ("auto", "on", "off")))
+register("SORT_INGEST", "auto",
+         "Ingest pipeline selector; auto streams inputs above ~32 MiB.",
+         _enum("SORT_INGEST", ("auto", "stream", "mono")))
 register("SORT_INGEST_CHUNK", None,
-         "Keys per text-parse chunk (default 2^22).",
+         "Keys per streamed ingest chunk and per text-parse chunk "
+         "(default 2^22).",
          _int("SORT_INGEST_CHUNK", 1))
 register("SORT_INGEST_THREADS", 2,
-         "Text-parse worker threads.",
+         "Host parse/encode worker threads (text parse, ingest encode).",
          _int("SORT_INGEST_THREADS", 1))
+register("SORT_DONATE", "auto",
+         "Drop the staged word tensors once the sort's first dispatch has "
+         "read them (auto: on a CUDA device).",
+         _enum("SORT_DONATE", ("auto", "1", "0"),
+               err="{name}={raw!r}: use 'auto', '1' or '0'"))
 register("SORT_MEM_BUDGET", 0,
          "Byte budget the external sort partitions against; the CLI sorts a "
          "file above it out of core (0 = unlimited).",

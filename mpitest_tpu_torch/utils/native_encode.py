@@ -18,9 +18,12 @@ Engine selection is the registered knob ``SORT_NATIVE_ENCODE``:
 Both engines return the same keys and raise the same exception types on
 malformed input (``ValueError`` for bad tokens and headers,
 ``OverflowError`` for out-of-range tokens), with the same header
-messages.  Float text always parses in Python, as in the reference.  The
-reference's fused encode + fold (``enc_encode_fold``) serves its
-streamed ingest, which the port does not carry yet.
+messages.  Float text always parses in Python, as in the reference.
+
+:func:`encode_and_fold` is the encode stage of the streamed ingest
+(``models/ingest.py``): one chunk's words, per-word min and max, its
+maximum key and its fingerprint, in one GIL-released C pass
+(``enc_encode_fold``) or the numpy passes, with equal results.
 """
 
 from __future__ import annotations
@@ -32,9 +35,15 @@ import subprocess
 import threading
 from pathlib import Path
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 
 from mpitest_tpu_torch.utils import knobs
+
+if TYPE_CHECKING:
+    from mpitest_tpu_torch.models.verify import Fingerprint
+    from mpitest_tpu_torch.ops.keys import KeyCodec
 
 _REPO = Path(__file__).resolve().parents[2]
 SOURCE = _REPO / "native" / "encode.c"
@@ -45,9 +54,25 @@ LIB_PATH = _REPO / "build" / "native" / "libencode.so"
 ABI_VERSION = 1
 
 # status codes (native/encode.h)
+_ENC_OK = 0
 _ENC_ERANGE = -3
 _ENC_EMAGIC = -4
 _ENC_EHDR = -5
+
+
+
+class _EncFold(ctypes.Structure):
+    """``enc_fold`` of ``native/encode.h``: one chunk's reductions."""
+
+    _fields_ = [
+        ("count", ctypes.c_uint64),
+        ("xor0", ctypes.c_uint32), ("xor1", ctypes.c_uint32),
+        ("sum0", ctypes.c_uint32), ("sum1", ctypes.c_uint32),
+        ("min0", ctypes.c_uint32), ("min1", ctypes.c_uint32),
+        ("max0", ctypes.c_uint32), ("max1", ctypes.c_uint32),
+        ("lexmax0", ctypes.c_uint32), ("lexmax1", ctypes.c_uint32),
+    ]
+
 
 _LOADED = False
 _LIB: ctypes.CDLL | None = None
@@ -57,6 +82,11 @@ _LOAD_LOCK = threading.Lock()
 
 def _bind(lib: ctypes.CDLL) -> None:
     u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    lib.enc_encode_fold.restype = ctypes.c_int
+    lib.enc_encode_fold.argtypes = [
+        ctypes.c_void_p, ctypes.c_size_t, ctypes.c_char, ctypes.c_int,
+        u32p, u32p, ctypes.c_int, ctypes.POINTER(_EncFold)]
     lib.enc_abi_version.restype = ctypes.c_int
     lib.enc_abi_version.argtypes = []
     lib.enc_count_tokens.restype = ctypes.c_longlong
@@ -152,6 +182,84 @@ def build(quiet: bool = True) -> bool:
     with _LOAD_LOCK:  # force a re-probe
         _LOADED, _LIB, _LIB_ERR = False, None, None
     return ok and available()
+
+
+# ------------------------------------------------------------ encode path
+
+def encode_and_fold(chunk: np.ndarray, codec: "KeyCodec", fold_fp: bool,
+                    eng: str | None = None,
+                    ) -> "tuple[tuple[np.ndarray, ...], list[int], list[int], object, Fingerprint | None]":
+    """One chunk's encode stage: ``(words, word_mins, word_maxs,
+    native_max, fingerprint)``, where ``words`` are the codec's uint32
+    planes (msw first), the mins and maxs per-word reductions of them,
+    ``native_max`` the chunk's maximum key in its own dtype (None for
+    floats, which pad with the all-ones sentinel) and ``fingerprint`` the
+    ``models/verify.py`` fold (None when ``fold_fp`` is False).  Both
+    engines return equal values.  An empty chunk raises in both: it has
+    no min, max or pad."""
+    if np.asarray(chunk).size == 0:
+        raise ValueError("encode_and_fold: empty chunk (no min/max/pad "
+                         "is defined; the pipeline never produces one)")
+    if eng is None:
+        eng = engine()
+    if eng == "native":
+        return _encode_fold_native(chunk, codec, fold_fp)
+    return _encode_fold_python(chunk, codec, fold_fp)
+
+
+def _encode_fold_python(chunk: np.ndarray, codec: "KeyCodec", fold_fp: bool,
+                        ) -> "tuple[tuple[np.ndarray, ...], list[int], list[int], object, Fingerprint | None]":
+    """The numpy encode stage: codec encode, per-word min/max passes, the
+    host fingerprint and the native max."""
+    from mpitest_tpu_torch.models.verify import fingerprint_host
+
+    words = codec.encode(chunk)
+    los = [int(w.min()) for w in words]
+    his = [int(w.max()) for w in words]
+    m = chunk.max() if chunk.dtype.kind != "f" else None
+    fp = fingerprint_host(words) if fold_fp else None
+    return words, los, his, m, fp
+
+
+def _encode_fold_native(chunk: np.ndarray, codec: "KeyCodec", fold_fp: bool,
+                        ) -> "tuple[tuple[np.ndarray, ...], list[int], list[int], object, Fingerprint | None]":
+    from mpitest_tpu_torch.models.verify import Fingerprint
+
+    lib = _load()
+    assert lib is not None, "engine() guards this path"
+    dt = codec.dtype
+    if (not chunk.flags.c_contiguous or not chunk.flags.aligned
+            or chunk.dtype != dt):
+        # C needs one flat, aligned pointer
+        chunk = np.ascontiguousarray(chunk, dtype=dt)
+    n = int(chunk.size)
+    words = tuple(np.empty(n, np.uint32) for _ in range(codec.n_words))
+    w0 = words[0].ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+    w1 = (words[1].ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+          if codec.n_words == 2 else None)
+    fold = _EncFold()
+    rc = lib.enc_encode_fold(chunk.ctypes.data_as(ctypes.c_void_p), n,
+                             dt.kind.encode(), int(dt.itemsize), w0, w1,
+                             1 if fold_fp else 0, ctypes.byref(fold))
+    if rc != _ENC_OK:
+        raise TypeError(f"unsupported key dtype: {dt}")
+    if codec.n_words == 1:
+        los, his = [int(fold.min0)], [int(fold.max0)]
+        lexmax = (int(fold.lexmax0),)
+        fp = (Fingerprint(n, (int(fold.xor0),), (int(fold.sum0),))
+              if fold_fp else None)
+    else:
+        los = [int(fold.min0), int(fold.min1)]
+        his = [int(fold.max0), int(fold.max1)]
+        lexmax = (int(fold.lexmax0), int(fold.lexmax1))
+        fp = (Fingerprint(n, (int(fold.xor0), int(fold.xor1)),
+                          (int(fold.sum0), int(fold.sum1)))
+              if fold_fp else None)
+    # the lex max of the words is encode(max key): decode it back to the
+    # native scalar the pad logic expects
+    m = None if dt.kind == "f" else codec.decode(
+        tuple(np.full(1, v, np.uint32) for v in lexmax))[0]
+    return words, los, his, m, fp
 
 
 # ------------------------------------------------------------- text parse

@@ -3,7 +3,7 @@
     python3 -m mpitest_tpu_torch.utils.profile_kernels [--parts a,b,...]
 
 ``--parts`` picks sections (default: all): ``sorts`` (the list below),
-``phase_b`` and ``pack`` (the two after it).  Traces, with
+``phase_b``, ``pack`` and ``host`` (the three after it).  Traces, with
 ``torch.profiler`` (CUPTI), one warm call each of:
 
 * K1 ``bitonic.sort_padded`` on 2^28 int32 words;
@@ -35,7 +35,16 @@
   (``pack_rows``) per launch from the trace; then the wrapper's host
   path piece by piece (argument checks, output allocation, the launch
   glue, the bare C call), in µs a call over 2000 calls of a pack small
-  enough that the card keeps up.
+  enough that the card keeps up;
+* host input (``host``): ``sort()`` of a host int32 2^28 array on eight
+  ranks under ``SORT_INGEST=mono`` (one encode, one copy a shard, the
+  plain gather back) and ``stream`` (the streamed ingest and egress of
+  ``models/ingest.py``), six calls in the order mono, stream, stream,
+  mono, mono, stream, each with its phase seconds and the bytes checked
+  equal; the same array on one rank, ``sort(x)`` against
+  ``ingest_to_mesh`` + ``sort(staged)``; and the trace of one streamed
+  eight-rank call (its busy share is the device's share of the host
+  wall).
 
 For each it prints the host wall time of the window, the device time
 summed over CUDA events, their ratio (the device-busy share; one minus it
@@ -358,12 +367,67 @@ def pack_times(card: str, words: Callable[[int, int], torch.Tensor]) -> None:
               flush=True)
 
 
+def host_input(card: str, words: Callable[[int, int], torch.Tensor]) -> None:
+    """Host-input sort() on eight ranks and on one: the one-shot encode
+    and copy against the streamed ingest, host wall and phase seconds."""
+    import os
+
+    import numpy as np
+
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch.models import api
+    from mpitest_tpu_torch.parallel.mesh import make_mesh
+    from mpitest_tpu_torch.utils.trace import Tracer
+
+    del words
+    x = np.random.default_rng(2026).integers(-(2**31), 2**31, 1 << 28,
+                                             dtype=np.int64).astype(np.int32)
+    old = os.environ.get("SORT_INGEST")
+    first: dict = {}
+
+    def run(label: str, fn: Callable[[Tracer], np.ndarray]) -> None:
+        tr = Tracer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(tr)
+        wall = time.perf_counter() - t0
+        if "out" not in first:
+            first["out"] = out
+        elif out.tobytes() != first["out"].tobytes():
+            raise AssertionError(f"{label}: bytes differ from the first call's")
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in tr.phases.items())
+        print(f"[host] {label}: wall {wall:.3f} s (phases, s: {phases}) "
+              f"| card {card}", flush=True)
+
+    mesh = make_mesh(8)
+    try:
+        for mode in ("mono", "stream", "stream", "mono", "mono", "stream"):
+            os.environ["SORT_INGEST"] = mode
+            run(f"sort(np int32 2^28), 8 ranks, radix, SORT_INGEST={mode}",
+                lambda tr: mt.sort(x, mesh=mesh, tracer=tr))
+        os.environ["SORT_INGEST"] = "stream"
+        profile("sort(np int32 2^28), 8 ranks, radix, streamed ingest and egress",
+                lambda: mt.sort(x, mesh=mesh), card, top=8)
+        os.environ["SORT_INGEST"] = "auto"
+        mesh1 = make_mesh(1)
+        for label in ("sort(x)", "ingest_to_mesh + sort(staged)") * 2:
+            run(f"one rank, np int32 2^28, {label}",
+                (lambda tr: mt.sort(x, tracer=tr)) if label == "sort(x)" else
+                (lambda tr: mt.sort(api.ingest_to_mesh(x, mesh=mesh1, tracer=tr),
+                                    tracer=tr)))
+    finally:
+        if old is None:
+            os.environ.pop("SORT_INGEST", None)
+        else:
+            os.environ["SORT_INGEST"] = old
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parts", default="sorts,phase_b,pack",
-                    help="comma-separated sections: sorts, phase_b, pack")
+    ap.add_argument("--parts", default="sorts,phase_b,pack,host",
+                    help="comma-separated sections: sorts, phase_b, pack, host")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_kernels: no CUDA device available", file=sys.stderr)
@@ -376,7 +440,8 @@ def main(argv: list[str] | None = None) -> int:
         return torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32,
                              device=dev, generator=g)
 
-    sections = {"sorts": sorts, "phase_b": phase_b, "pack": pack_times}
+    sections = {"sorts": sorts, "phase_b": phase_b, "pack": pack_times,
+                "host": host_input}
     for part in args.parts.split(","):
         sections[part](card, words)
     return 0

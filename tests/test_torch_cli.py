@@ -141,6 +141,7 @@ def test_bad_sortbin1_dtype_matches_reference(tmp_path, capsys, monkeypatch):
     ("SORT_DIGIT_BITS", "33"), ("SORT_NATIVE_ENCODE", "maybe"),
     ("SORT_LOCAL_ENGINE", "warp"), ("SORT_VERIFY", "yes"),
     ("SORT_INGEST_THREADS", "0"), ("SORT_MEM_BUDGET", "-1"),
+    ("SORT_INGEST", "fast"), ("SORT_DONATE", "yes"),
 ])
 def test_knob_garbage_is_one_error_line(knob, value, int_file, capsys, monkeypatch):
     path, _ = int_file

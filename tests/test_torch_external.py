@@ -142,6 +142,52 @@ def test_external_sort_equals_reference(case, sink, tmp_path, monkeypatch):
     assert left == []
 
 
+RECORD_CASES = [
+    # dtype, n, payload width, budget, compress, port engine
+    ("int32", 1 << 13, 8, 1 << 14, "off", "radix_pallas"),
+    ("int64", 1 << 13, 3, 1 << 14, "on", "auto"),
+    ("float32", 5000, 10, 1 << 14, "off", "auto"),
+    ("uint16", 6000, 1, 1 << 13, "on", "auto"),
+]
+
+
+@pytest.mark.parametrize("sink", ["array", "callable"])
+@pytest.mark.parametrize("case", RECORD_CASES, ids=[c[0] for c in RECORD_CASES])
+def test_external_record_sort_equals_reference(case, sink, tmp_path, monkeypatch):
+    """``external_sort(x, payload)``: the chunk sorts are record sorts; keys,
+    payload, runs, passes and the combined sidecar Fingerprint (key,
+    payload and binding words) equal the reference's, and the records are
+    the stable argsort-gather of the input (duplicate keys included)."""
+    dtype, n, width, budget, comp, engine = case
+    rng = np.random.default_rng(n + width)
+    x = _keys(rng, dtype, n)
+    x[n // 3: n // 3 + n // 8] = x[1]
+    pay = rng.integers(0, 256, (n, width), dtype=np.uint8)
+    monkeypatch.setenv("SORT_SPILL_COMPRESS", comp)
+    ref_infos = _capture_runs(monkeypatch, ref_runs)
+    ref = ref_external.external_sort(x, pay, budget=budget, fanin=4,
+                                     spill_dir=str(tmp_path / "ref"))
+    monkeypatch.setenv("SORT_LOCAL_ENGINE", engine)
+    infos = _capture_runs(monkeypatch, runlib)
+    got_k, got_p = [], []
+    res = external.external_sort(
+        x, pay, budget=budget, fanin=4, spill_dir=str(tmp_path / "port"),
+        sink=((lambda k, p: (got_k.append(k), got_p.append(p)))
+              if sink == "callable" else sink), device="cpu")
+    assert res.merge_passes >= 2
+    assert (res.n, res.runs, res.merge_passes, res.disk_bytes) == \
+        (ref.n, ref.runs, ref.merge_passes, ref.disk_bytes)
+    assert res.payload_width == ref.payload_width == width
+    assert _combined(infos) == _combined(ref_infos, Fingerprint.from_reference)
+    keys = res.keys if sink == "array" else np.concatenate(got_k)
+    payload = res.payload if sink == "array" else np.concatenate(got_p)
+    assert keys.tobytes() == ref.keys.tobytes()
+    assert payload.tobytes() == ref.payload.tobytes()
+    order = np.lexsort(tuple(reversed(runlib.codec_for(x.dtype).encode(x))))
+    assert keys.tobytes() == x[order].tobytes()
+    assert payload.tobytes() == pay[order].tobytes()
+
+
 @pytest.mark.parametrize("fmt", ["binary", "text"])
 def test_external_sort_file_equals_reference(fmt, tmp_path, rng, monkeypatch):
     x = _keys(rng, "int64", 8192)
@@ -327,8 +373,11 @@ def test_external_argument_errors(rng, monkeypatch):
         external.external_sort(x, budget=0, device="cpu")
     with pytest.raises(ValueError, match="fan-in"):
         external.external_sort(x, budget=1 << 20, fanin=1, device="cpu")
-    with pytest.raises(knobs.NotPortedError, match="sort_records"):
-        external.external_sort(x, payload=np.zeros(10, np.uint64), budget=1 << 20)
+    # a payload rides now (the record sort); a malformed one is refused as
+    # in the reference
+    with pytest.raises(ValueError, match="one element per record"):
+        external.external_sort(x, payload=np.zeros(9, np.uint64), budget=1 << 20,
+                               device="cpu")
     with pytest.raises(ValueError, match="either device or mesh"):
         external.external_sort(x, budget=1 << 20, device="cpu",
                                mesh=make_mesh(2, devices=["cpu"] * 2))

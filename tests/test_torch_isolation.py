@@ -29,7 +29,8 @@ def test_import_pulls_in_no_jax():
             "mpitest_tpu_torch.store.external, mpitest_tpu_torch.store.merge, "
             "mpitest_tpu_torch.store.runs, mpitest_tpu_torch.store.compress, "
             "mpitest_tpu_torch.store.aio, mpitest_tpu_torch.store.manifest, "
-            "mpitest_tpu_torch.models.records, mpitest_tpu_torch.models.segmented\n"
+            "mpitest_tpu_torch.models.records, mpitest_tpu_torch.models.segmented, "
+            "mpitest_tpu_torch.models.ingest\n"
             "mpitest_tpu_torch.external_sort\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mpitest_tpu' or "
@@ -57,7 +58,8 @@ def test_no_source_imports_jax_or_reference():
             "mpitest_tpu_torch/store/merge.py", "mpitest_tpu_torch/store/runs.py",
             "mpitest_tpu_torch/store/compress.py", "mpitest_tpu_torch/store/aio.py",
             "mpitest_tpu_torch/store/manifest.py", "mpitest_tpu_torch/models/records.py",
-            "mpitest_tpu_torch/models/segmented.py"} <= names
+            "mpitest_tpu_torch/models/segmented.py",
+            "mpitest_tpu_torch/models/ingest.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"

@@ -1,6 +1,7 @@
 """``mpitest_tpu_torch.sort`` takes the reference's positional order:
 ``sort(x, algorithm, mesh, digit_bits, cap_factor, oversample, tracer,
-return_result, pack, exchange_engine)``, with ``device`` keyword-only.
+return_result, pack, exchange_engine, payload)``, with ``device``
+keyword-only.
 
 Both packages are called positionally on the same keys and must give the
 same bytes and the same result ``Fingerprint``: on a 2-rank mesh (the
@@ -52,14 +53,14 @@ def _ref_fingerprint(res) -> verify.Fingerprint:
 
 def test_positional_names_follow_the_reference():
     """Every positional parameter of the port's sort() has the
-    reference's name and place; the reference's next one (``payload``,
-    the record sort) is not ported, and ``device`` is keyword-only."""
+    reference's name and place, ``payload`` (the record sort) the last of
+    them, as in the reference; ``device`` is keyword-only."""
     port = inspect.signature(mt.sort).parameters
     ref = list(inspect.signature(ref_api.sort).parameters)
     positional = [n for n, p in port.items()
                   if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
-    assert positional == ref[:len(positional)]
-    assert positional[-1] == "exchange_engine" and ref[len(positional)] == "payload"
+    assert positional == ref
+    assert positional[-1] == "payload"
     assert port["device"].kind is inspect.Parameter.KEYWORD_ONLY
     for name in positional:
         assert port[name].default == inspect.signature(ref_api.sort).parameters[
@@ -108,5 +109,20 @@ def test_device_is_keyword_only():
     """``device`` in the reference's mesh slot is refused, never read as a
     mesh, and as a keyword it still runs."""
     with pytest.raises(TypeError):
-        mt.sort(_X, "radix", None, None, 2.0, None, None, False, None, None, "cpu")
+        mt.sort(_X, "radix", None, None, 2.0, None, None, False, None, None, None,
+                "cpu")
     assert mt.sort(_X, "radix", device="cpu").tobytes() == np.sort(_X).tobytes()
+
+
+def test_positional_payload_is_the_record_sort():
+    """``payload`` in the eleventh slot: both packages run the record sort
+    and return equal keys and payload bytes."""
+    pay = np.random.default_rng(607).integers(0, 256, (_X.size, 6), dtype=np.uint8)
+    got = mt.sort(_X, "radix", None, None, 2.0, None, None, False, None, None, pay,
+                  device="cpu")
+    want = ref_api.sort(_X, "radix", None, None, 2.0, None, None, False, None, None,
+                        pay)
+    assert got[0].tobytes() == want[0].tobytes()
+    assert got[1].tobytes() == want[1].tobytes()
+    order = np.argsort(_X, kind="stable")
+    assert got[1].tobytes() == pay[order].tobytes()
