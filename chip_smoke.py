@@ -98,6 +98,34 @@ Phases, each failing loudly (any exception exits non-zero):
              (``ingest.pipeline`` span asserted) and their contiguous
              results stream back through ``to_numpy(tracer)``
              (``egress.*`` spans, one fetch a rank).
+             (j) the telemetry layer on the card: the wall of
+             ``sort(cuda int32 2^28)`` on one rank and of the radix and
+             sample sorts on eight ranks with tracing off, with
+             ``SORT_TRACE`` + ``SORT_TRACE_CHROME`` on (the Chrome export
+             in the wall) and with ``SORT_TRACE_SAMPLE=0.1`` (one tracer
+             over ten calls streams exactly one call's lines), median of
+             5, with the streamed lines a call; each streamed file held
+             to the reference report's ``check_rows`` rules (repeated
+             here: required keys, dt >= 0, parents that resolve, every
+             name registered in the port's ``span_schema``), the
+             eight-rank radix file to one ``radix_pass`` and one
+             ``ragged_all_to_all`` (``wire_bytes`` > 0) a planned pass,
+             ``exchange_balance``, and a ``sort`` span with
+             ``device_mem_peak_bytes`` > 0; phase ``sort``'s host ms beside
+             CUDA events around the same region (one and eight ranks); the
+             CUDA runtime's synchronize calls in a profile of one eight-rank
+             sort, traced and untraced, equal; ``SORT_PROFILE`` through the
+             CLI on a 2^24 SORTBIN1 file on eight ranks (radix) with the
+             trace, Chrome and metrics sinks: its ``*.pt.trace.json``
+             must hold the ``pack_rows`` (fused_pass_pack) and
+             ``a2a_push`` (remote_a2a) kernels, and the card's busy share
+             is printed; the same profiler's busy share of the external
+             record leg (int32 2^22, 8-byte payload, 4 MiB) and the record
+             sort at int32 2^25; the CLI on a 2^28 SORTBIN1 file untraced
+             and with ``SORT_METRICS`` + ``SORT_TRACE`` +
+             ``SORT_TRACE_CHROME`` (the sidecar's ``sort_mkeys_per_s``
+             beside both timing lines); and a flight-recorder dump, held
+             to the same check.
              Every output equals its oracle (np.sort, or torch.sort on the
              card for the large rows and every mesh row; the CLI's probe
              equals the (n/2)-th element of np.sort); the ``local_engine``
@@ -129,7 +157,8 @@ Phases, each failing loudly (any exception exits non-zero):
              planes);
              the wall of each external leg; phase 3i's notes (record sort
              Mkeys/s, ingest stage seconds and overlap, donation memory),
-             its wall and the smoke's total wall.
+             its wall, phase 3j's notes and wall, and the smoke's total
+             wall.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -139,6 +168,7 @@ before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -212,7 +242,7 @@ def main() -> int:
     from mpitest_tpu_torch.store import compress
     from mpitest_tpu_torch.store import merge as mergelib
     from mpitest_tpu_torch.utils import io as kio
-    from mpitest_tpu_torch.utils import native_encode
+    from mpitest_tpu_torch.utils import knobs, native_encode
     from mpitest_tpu_torch.utils.trace import Tracer
 
     t_smoke = time.perf_counter()
@@ -1100,6 +1130,321 @@ def main() -> int:
                      K5: lax_launches[K5], K6: mesh_launches[K6],
                      K7: mesh_launches[K7], K8: k8_launches[K8]}
 
+    # -------------------------------------------- 3j. telemetry on the card
+    from mpitest_tpu_torch.utils import flight_recorder, span_schema
+    from mpitest_tpu_torch.utils.trace import torch_profile
+
+    t_tele = time.perf_counter()
+    tele_notes: list[str] = []
+
+    def tele(note: str) -> None:
+        tele_notes.append(note)
+        log(f"[telemetry] {note} | card {card}")
+
+    def check_trace(path: str) -> list[dict]:
+        """The reference report's check_rows rules, repeated here: every
+        line a JSON object, spans (``span.v1``) with name/id/t0/dt/attrs,
+        attrs an object, dt >= 0, parent links that resolve within the
+        file, every name registered in the port's span_schema; the only
+        other shape allowed is a metrics line (the flight dump's
+        header).  Returns the span rows."""
+        rows: list[dict] = []
+        with open(path) as f:
+            lines = f.read().splitlines()
+        for i, line in enumerate(lines, 1):
+            if not line.strip():
+                continue
+            obj = json.loads(line)
+            where = f"{path}:{i}"
+            if not isinstance(obj, dict):
+                raise AssertionError(f"{where}: top-level value is not an object")
+            if obj.get("v") == "span.v1":
+                for key in ("name", "id", "t0", "dt", "attrs"):
+                    if key not in obj:
+                        raise AssertionError(f"{where}: span missing {key!r}")
+                if not isinstance(obj["attrs"], dict):
+                    raise AssertionError(f"{where}: span attrs must be an object")
+                if obj["dt"] < 0:
+                    raise AssertionError(f"{where}: span dt < 0")
+                if not span_schema.is_registered(obj["name"]):
+                    raise AssertionError(f"{where}: unregistered span {obj['name']!r}")
+                rows.append(obj)
+            elif not ("metrics" in obj and "config" in obj):
+                raise AssertionError(f"{where}: unrecognized record shape")
+        ids = {r["id"] for r in rows}
+        for r in rows:
+            if r.get("parent") is not None and r["parent"] not in ids:
+                raise AssertionError(f"{path}: span id={r['id']} has dangling "
+                                     f"parent {r['parent']}")
+        if not rows:
+            raise AssertionError(f"{path}: no span rows")
+        return rows
+
+    def profile_stats(logdir: str) -> tuple[float, float, set[str], dict[str, int]]:
+        """From the ``*.pt.trace.json`` torch_profile wrote: the card's
+        busy ms (the union of kernel, memcpy and memset intervals), the
+        window ms (first to last event of the trace), the kernel names and
+        the count of each CUDA runtime call whose name holds
+        ``Synchronize``."""
+        arts = [f for f in os.listdir(logdir) if f.endswith(".pt.trace.json")]
+        if len(arts) != 1:
+            raise AssertionError(f"{logdir}: profile artifacts {arts}")
+        with open(os.path.join(logdir, arts[0])) as f:
+            evs = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        dev_iv = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                        for e in evs
+                        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+        if not dev_iv:
+            raise AssertionError(f"{logdir}: the profile holds no device event")
+        busy, cur_a, cur_b = 0.0, None, None
+        for a, b in dev_iv:
+            if cur_b is None or a > cur_b:
+                if cur_b is not None:
+                    busy += cur_b - cur_a
+                cur_a, cur_b = a, b
+            else:
+                cur_b = max(cur_b, b)
+        busy += cur_b - cur_a
+        t0 = min(float(e["ts"]) for e in evs)
+        t1 = max(float(e["ts"]) + float(e.get("dur", 0)) for e in evs)
+        kernels_seen = {e["name"] for e in evs if e.get("cat") == "kernel"}
+        syncs: dict[str, int] = {}
+        for e in evs:
+            if e.get("cat") == "cuda_runtime" and "Synchronize" in e["name"]:
+                syncs[e["name"]] = syncs.get(e["name"], 0) + 1
+        return busy / 1e3, (t1 - t0) / 1e3, kernels_seen, syncs
+
+    def wall(fn) -> float:
+        sync()
+        t = time.perf_counter()
+        fn()
+        sync()
+        return time.perf_counter() - t
+
+    @dataclasses.dataclass
+    class EventTracer(Tracer):
+        """A tracer that also records CUDA events where phase "sort" opens
+        and closes, on the current stream (all ranks' work is on it)."""
+
+        sort_events: list = dataclasses.field(default_factory=list)
+
+        @contextlib.contextmanager
+        def phase(self, name: str):
+            with Tracer.phase(self, name):
+                if name != "sort":
+                    yield
+                    return
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                try:
+                    yield
+                finally:
+                    b.record()
+                    self.sort_events.append((a, b))
+
+    def telemetry_path(tdir: str) -> None:
+        x28 = words(1 << 28, 3001)
+        cases = (("sort(cuda int32 2^28), one rank", "p1", {}),
+                 (f"sort(cuda int32 2^28), {RANKS} ranks, radix", "p8r",
+                  {"mesh": mesh, "algorithm": "radix"}),
+                 (f"sort(cuda int32 2^28), {RANKS} ranks, sample", "p8s",
+                  {"mesh": mesh, "algorithm": "sample"}))
+        for label, slug, kw in cases:
+            def call(tr=None, kw=kw):
+                return mt.sort(x28, return_result=True, tracer=tr, **kw)
+
+            wall(call)                                   # warm
+            off = [wall(call) for _ in range(REPS)]
+            on, lines = [], []
+            last_tr = None
+            for i in range(REPS):
+                path = os.path.join(tdir, f"{slug}-{i}.jsonl")
+                chrome = os.path.join(tdir, f"{slug}-{i}.chrome.json")
+
+                def traced(path=path, chrome=chrome) -> None:
+                    nonlocal last_tr
+                    with env(SORT_TRACE=path, SORT_TRACE_CHROME=chrome):
+                        last_tr = Tracer()
+                        call(last_tr)
+                        with open(knobs.get("SORT_TRACE_CHROME"), "w") as f:
+                            json.dump(last_tr.spans.to_chrome_trace(), f)
+
+                on.append(wall(traced))
+                with open(path) as f:
+                    lines.append(len(f.read().splitlines()))
+            rows = check_trace(path)
+            with open(chrome) as f:
+                if not json.load(f)["traceEvents"]:
+                    raise AssertionError(f"{label}: empty Chrome trace")
+            sort_rows = [r for r in rows if r["name"] == "sort"]
+            if len(sort_rows) != 1 or \
+                    sort_rows[0]["attrs"].get("device_mem_peak_bytes", 0) <= 0:
+                raise AssertionError(f"{label}: sort span {sort_rows}")
+            if slug == "p8r":
+                names = [r["name"] for r in rows]
+                passes = int(last_tr.counters["exchange_passes"])
+                a2a = [r for r in rows if r["name"] == "ragged_all_to_all"]
+                if (names.count("radix_pass") != passes or len(a2a) != passes
+                        or not all(r["attrs"]["wire_bytes"] > 0 for r in a2a)
+                        or "exchange_balance" not in names):
+                    raise AssertionError(f"{label}: {names.count('radix_pass')} "
+                                         f"radix_pass, {len(a2a)} exchanges for "
+                                         f"{passes} passes, names {sorted(set(names))}")
+            # SORT_TRACE_SAMPLE=0.1: one tracer over ten calls streams
+            # exactly one root's subtree
+            spath = os.path.join(tdir, f"{slug}-sampled.jsonl")
+            with env(SORT_TRACE=spath, SORT_TRACE_SAMPLE="0.1"):
+                st = Tracer()
+                sampled = [wall(lambda: call(st)) for _ in range(2 * REPS)]
+            with open(spath) as f:
+                s_lines = len(f.read().splitlines())
+            check_trace(spath)
+            if s_lines != lines[-1]:
+                raise AssertionError(f"{label}: the sampled stream held {s_lines} "
+                                     f"lines over ten calls, one call streams "
+                                     f"{lines[-1]}")
+            m_off, m_on, m_s = (statistics.median(v) for v in (off, on, sampled))
+            tele(f"tracing overhead, {label} (verify on, result on card; host wall "
+                 f"to a synchronize, median of {REPS}): off {m_off * 1e3:.3f} ms, "
+                 f"SORT_TRACE + SORT_TRACE_CHROME {m_on * 1e3:.3f} ms (ratio "
+                 f"{m_on / m_off:.4f}, {statistics.median(lines)} streamed lines a "
+                 f"call, Chrome export included), SORT_TRACE_SAMPLE=0.1 "
+                 f"{m_s * 1e3:.3f} ms (median of {2 * REPS}; ratio {m_s / m_off:.4f}, "
+                 f"{s_lines / (2 * REPS):.1f} lines a call)")
+
+        # host phase "sort" against CUDA events around the same region
+        for label, kw in (("one rank", {}),
+                          (f"{RANKS} ranks, radix", {"mesh": mesh,
+                                                     "algorithm": "radix"})):
+            host_ms, ev_ms = [], []
+            for _ in range(REPS):
+                tr = EventTracer()
+                mt.sort(x28, return_result=True, tracer=tr, **kw)
+                sync()
+                host_ms.append(tr.phases["sort"] * 1e3)
+                ev_ms.append(sum(a.elapsed_time(b) for a, b in tr.sort_events))
+            tele(f"phase sort of sort(cuda int32 2^28), {label}: host "
+                 f"{statistics.median(host_ms):.3f} ms against CUDA events "
+                 f"{statistics.median(ev_ms):.3f} ms around the same region "
+                 f"(median of {REPS}; {len(tr.sort_events)} sort phase(s) a call)")
+        del x28
+
+        # tracing adds no synchronisation: the CUDA runtime's synchronize
+        # calls in a profile of one warm call, untraced and traced
+        x24 = words(1 << 24, 3002)
+        mt.sort(x24, mesh=mesh, return_result=True)
+        counted = {}
+        for mode in ("untraced", "traced"):
+            pdir = os.path.join(tdir, f"sync-{mode}")
+            extra = ({"SORT_TRACE": os.path.join(tdir, "sync.jsonl")}
+                     if mode == "traced" else {})
+            with env(**extra), torch_profile(pdir, mesh.devices):
+                mt.sort(x24, mesh=mesh, return_result=True, tracer=Tracer())
+            counted[mode] = profile_stats(pdir)[3]
+        if counted["traced"] != counted["untraced"]:
+            raise AssertionError(f"tracing changed the synchronize calls: {counted}")
+        tele(f"synchronize calls in one sort(cuda int32 2^24), {RANKS} ranks, "
+             f"radix: untraced {counted['untraced']}, traced {counted['traced']} "
+             "(equal: tracing adds none)")
+        del x24
+
+        # the CLI: 2^24 on eight ranks under SORT_PROFILE (with the trace,
+        # Chrome and metrics sinks), then 2^28 on one rank traced and not
+        x = int32_keys(1 << 24)
+        f24 = os.path.join(tdir, "keys24.bin")
+        kio.write_keys_binary(f24, x)
+        pdir = os.path.join(tdir, "profile")
+        sinks = {"SORT_METRICS": os.path.join(tdir, "m24.jsonl"),
+                 "SORT_TRACE": os.path.join(tdir, "t24.jsonl"),
+                 "SORT_TRACE_CHROME": os.path.join(tdir, "c24.json")}
+        run_cli("2^24 int32 SORTBIN1, SORT_PROFILE + sinks", f24, "auto", x, "lax",
+                ranks=RANKS, algo="radix", extra_env={"SORT_PROFILE": pdir, **sinks})
+        busy, window, names, _ = profile_stats(pdir)
+        for entry_name, kernel in (("fused_pass_pack", "pack_rows"),
+                                   ("remote_a2a", "a2a_push")):
+            if not any(kernel in nm for nm in names):
+                raise AssertionError(f"SORT_PROFILE: no {kernel} kernel event "
+                                     f"({entry_name}) in {sorted(names)}")
+        check_trace(sinks["SORT_TRACE"])
+        with open(sinks["SORT_METRICS"]) as f:
+            if "sort_mkeys_per_s" not in json.loads(f.read())["metrics"]:
+                raise AssertionError("CLI 2^24: no sort_mkeys_per_s in the sidecar")
+        tele(f"SORT_PROFILE of the CLI, {RANKS} ranks radix, 2^24 int32 SORTBIN1 "
+             f"(sort + host decode): card busy {busy:.3f} of {window:.3f} ms, "
+             f"busy share {busy / window:.4f}; kernels include pack_rows "
+             f"(fused_pass_pack) and a2a_push (remote_a2a)")
+        os.unlink(f24)
+        del x
+
+        x = int32_keys(1 << 28)
+        f28 = os.path.join(tdir, "keys28.bin")
+        kio.write_keys_binary(f28, x)
+        run_cli("2^28 int32 SORTBIN1, untraced", f28, "auto", x, "bitonic")
+        sinks = {"SORT_METRICS": os.path.join(tdir, "m28.jsonl"),
+                 "SORT_TRACE": os.path.join(tdir, "t28.jsonl"),
+                 "SORT_TRACE_CHROME": os.path.join(tdir, "c28.json")}
+        run_cli("2^28 int32 SORTBIN1, traced", f28, "auto", x, "bitonic",
+                extra_env=sinks)
+        with open(sinks["SORT_METRICS"]) as f:
+            side = json.loads(f.read().splitlines()[-1])
+        if set(side["config"]) != {"algo", "n", "dtype", "ranks", "digit_bits"}:
+            raise AssertionError(f"metrics sidecar config {side['config']}")
+        check_trace(sinks["SORT_TRACE"])
+        ends_off = cli_times["2^28 int32 SORTBIN1, untraced"][0]
+        ends_on = cli_times["2^28 int32 SORTBIN1, traced"][0]
+        tele(f"CLI 2^28 int32 SORTBIN1, one rank: untraced Endtime()-Starttime() "
+             f"= {ends_off:.5f} s ({(1 << 28) / ends_off / 1e6:.1f} Mkeys/s), with "
+             f"SORT_METRICS + SORT_TRACE + SORT_TRACE_CHROME {ends_on:.5f} s, "
+             f"sidecar sort_mkeys_per_s {side['metrics']['sort_mkeys_per_s']['value']}")
+        os.unlink(f28)
+        del x
+
+        # the card's busy share of the external record leg and the record
+        # sort (a host-bound merge and a host-side record path)
+        n, width, budget = 1 << 22, 8, 1 << 22
+        x = int32_keys(n)
+        pay = rng.integers(0, 256, (n, width), dtype=np.uint8)
+        pdir = os.path.join(tdir, "prof-ext")
+        t = time.perf_counter()
+        with torch_profile(pdir, [dev]):
+            mt.external_sort(x, pay, budget=budget,
+                             spill_dir=os.path.join(tdir, "spill"))
+        ext_wall = time.perf_counter() - t
+        busy, window, _, _ = profile_stats(pdir)
+        tele(f"external_sort(np int32 2^22, payload=8 bytes, budget 4 MiB) under "
+             f"SORT_PROFILE: card busy {busy:.3f} of {window:.3f} ms, busy share "
+             f"{busy / window:.6f} (wall {ext_wall:.3f} s under the profiler)")
+        x = int32_keys(1 << 25)
+        pdir = os.path.join(tdir, "prof-rec")
+        t = time.perf_counter()
+        with torch_profile(pdir, [dev]):
+            mt.sort(x, payload=np.arange(x.size, dtype=np.uint64))
+        rec_wall = time.perf_counter() - t
+        busy, window, _, _ = profile_stats(pdir)
+        tele(f"sort(np int32 2^25, payload=uint64 row ids) under SORT_PROFILE: "
+             f"card busy {busy:.3f} of {window:.3f} ms, busy share "
+             f"{busy / window:.4f} (wall {rec_wall:.3f} s under the profiler)")
+        del x, pay
+
+        fpath = flight_recorder.get().dump("smoke")
+        if fpath is None:
+            raise AssertionError("the flight recorder dumped nothing")
+        frows = check_trace(fpath)
+        tele(f"flight recorder dump: {len(frows)} spans (ring "
+             f"{flight_recorder.get().capacity}), passes the schema check")
+
+    with tempfile.TemporaryDirectory() as tdir:
+        with env(SORT_FLIGHT_RECORDER_DIR=os.path.join(tdir, "flight")):
+            flight_recorder.reset()
+            try:
+                run_path("telemetry on the card", (K1, K6, K7),
+                         lambda: telemetry_path(tdir))
+            finally:
+                flight_recorder.reset()
+    tele_wall = time.perf_counter() - t_tele
+    log(f"[main] phase 3j (telemetry) wall {tele_wall:.3f} s")
+
     # ---------------------------------------------------------- 4. timing
     entries = []
 
@@ -1405,6 +1750,9 @@ def main() -> int:
 
     for note in slice_notes:
         log(f"[timing] {note} | card {card}")
+    for note in tele_notes:
+        log(f"[timing] telemetry: {note} | card {card}")
+    log(f"[timing] phase 3j wall {tele_wall:.3f} s | card {card}")
     log(f"[timing] phase 3i wall {slice_wall:.3f} s; smoke total wall "
         f"{time.perf_counter() - t_smoke:.3f} s | card {card}")
     log(f"[card] {card}")

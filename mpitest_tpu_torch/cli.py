@@ -37,13 +37,24 @@ the sort runs out of core (``store/external.py``): budget-sized chunks are
 sorted on the mesh and spilled to sorted runs, a streamed k-way merge
 probes the median without holding the result, and the bucket line prints
 once n is known.  Debug runs keep the in-memory path, as in the
-reference.  What the port cannot take yet ends with one ``[ERROR]`` line
-and exit 1: ``SORT_FAULTS``/``SORT_METRICS``/``SORT_TRACE``/
-``SORT_PROFILE`` and ``--explain``.
+reference.
+
+Observability, off by default and outside the timed span, as in the
+reference: ``SORT_METRICS=<path>`` appends one JSON sidecar line per run
+(phase ms, Mkeys/s, counters, exchange bytes and GB/s; both legs);
+``SORT_TRACE=<path>`` streams the span log as JSONL (``utils/spans.py``;
+``SORT_TRACE_SAMPLE`` thins it); ``SORT_TRACE_CHROME=<path>`` writes the
+run as Chrome trace-event JSON; ``SORT_PROFILE=<logdir>`` wraps the sort
+in ``torch.profiler`` (CUDA activity on a card, a ``*.pt.trace.json``
+artifact; ``utils/trace.torch_profile``).  A typed error dumps the flight
+recorder's ring (``SORT_FLIGHT_RECORDER_SIZE``/``_DIR``).  What the port
+cannot take yet ends with one ``[ERROR]`` line and exit 1:
+``SORT_FAULTS`` and ``--explain``.
 """
 
 from __future__ import annotations
 
+import json
 import re
 import sys
 import time
@@ -62,13 +73,14 @@ from mpitest_tpu_torch.store import external
 from mpitest_tpu_torch.utils import io as kio
 from mpitest_tpu_torch.utils import knobs, native_encode
 from mpitest_tpu_torch.utils.knobs import NotPortedError
-from mpitest_tpu_torch.utils.trace import Tracer
+from mpitest_tpu_torch.utils.metrics import Metrics
+from mpitest_tpu_torch.utils.trace import Tracer, torch_profile
 
 EXIT_INTEGRITY = 3
 EXIT_RETRIES = 4
 
 #: Knobs of reference subsystems the port does not carry yet.
-_UNPORTED_KNOBS = ("SORT_FAULTS", "SORT_METRICS", "SORT_TRACE", "SORT_PROFILE")
+_UNPORTED_KNOBS = ("SORT_FAULTS",)
 
 #: Knobs read later in the run, validated up front so garbage fails here.
 _VALIDATED = ("SORT_INGEST", "SORT_INGEST_CHUNK", "SORT_INGEST_THREADS",
@@ -77,7 +89,8 @@ _VALIDATED = ("SORT_INGEST", "SORT_INGEST_CHUNK", "SORT_INGEST_THREADS",
               "SORT_SPILL_DIR", "SORT_MERGE_FANIN", "SORT_SPILL_COMPRESS",
               "SORT_SPILL_THROTTLE_MBPS", "SORT_EXCHANGE_ENGINE",
               "SORT_DEVICES", "SORT_NEGOTIATE", "SORT_RESTAGE",
-              "SORT_RESTAGE_RATIO")
+              "SORT_RESTAGE_RATIO", "SORT_TRACE_SAMPLE",
+              "SORT_FLIGHT_RECORDER_SIZE", "SORT_FLIGHT_RECORDER_DIR")
 
 
 def _error(msg: str) -> None:
@@ -94,6 +107,18 @@ def _refuse_unported() -> None:
         if knobs.get(name):
             raise NotPortedError(f"{name}={knobs.get(name)!r}: not ported yet; "
                                  "unset it")
+
+
+def _dump_metrics(config: dict, n: int, seconds: float, tracer: Tracer) -> None:
+    """``SORT_METRICS=<path>``: append the run's sidecar line (the
+    reference's config keys and metric names)."""
+    metrics_path = knobs.get("SORT_METRICS")
+    if metrics_path:
+        m = Metrics(config=config)
+        m.record("wall_time_s", round(seconds, 6), "s")
+        m.throughput("sort_mkeys_per_s", n, seconds)
+        m.record_tracer(tracer)
+        m.dump(metrics_path)
 
 
 def _mesh(ranks: int | None, dev: torch.device) -> Mesh:
@@ -187,10 +212,11 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
 
     start = time.perf_counter()  # after the file read
     try:
-        res = api.sort(keys, algorithm=algo, tracer=tracer, return_result=True,
-                       mesh=mesh, digit_bits=digit_bits, cap_factor=cap_factor,
-                       oversample=oversample)
-        out = res.to_numpy(tracer=tracer)
+        with torch_profile(knobs.get("SORT_PROFILE"), mesh.devices):
+            res = api.sort(keys, algorithm=algo, tracer=tracer,
+                           return_result=True, mesh=mesh, digit_bits=digit_bits,
+                           cap_factor=cap_factor, oversample=oversample)
+            out = res.to_numpy(tracer=tracer)
     except SortIntegrityError as e:
         _error(f"sort integrity failure: {e}")
         return EXIT_INTEGRITY
@@ -198,6 +224,13 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
         _error(f"sort failed after retries: {e}")
         return EXIT_RETRIES
     end = time.perf_counter()
+
+    chrome_path = knobs.get("SORT_TRACE_CHROME")
+    if chrome_path:
+        with open(chrome_path, "w") as f:
+            json.dump(tracer.spans.to_chrome_trace(), f)
+    _dump_metrics({"algo": algo, "n": n, "dtype": dtype.name, "ranks": n_ranks,
+                   "digit_bits": digit_bits}, n, end - start, tracer)
 
     if debug > 2:
         mask = (1 << (8 * dtype.itemsize)) - 1
@@ -274,6 +307,9 @@ def _external_main(path: str, dtype: np.dtype, algo: str, mem_budget: int,
     end = time.perf_counter()
     if probe["n"] == 0:
         return _invalid_file(path)
+    _dump_metrics({"algo": algo, "n": probe["n"], "dtype": dtype.name,
+                   "ranks": n_ranks, "external": True},
+                  probe["n"], end - start, tracer)
     med = probe["med"]
     if dtype.kind == "f":
         print(f"The n/2-th sorted element: {med}")

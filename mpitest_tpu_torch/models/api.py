@@ -55,6 +55,14 @@ contiguous result of several shards streams its egress
 (``DistributedSortResult.to_numpy(tracer)``).  ``payload=`` is the
 record sort of ``models/records.py``.
 
+Telemetry: the run's spans land on ``tracer.spans`` (nested phases, the
+first-call/later-call split of every program dispatch, one span per radix
+pass and splitter round, point events with byte counts per collective,
+and the ``sort`` span's ``device_mem_peak_bytes``); ``SORT_TRACE=<path>``
+streams them as JSONL.  Host spans time the enqueue of CUDA work, and
+tracing adds no synchronisation (``utils/spans.py``).  A typed error
+leaving ``sort()`` dumps the flight recorder's ring first.
+
 Not ported here: the degradation ladder, fault hooks, plan records and
 the planner.  A failed verification raises :class:`SortIntegrityError`;
 a kernel that fails raises.
@@ -63,6 +71,7 @@ a kernel that fails raises.
 from __future__ import annotations
 
 import math
+from collections.abc import Callable, Iterable
 from dataclasses import dataclass
 from typing import Any
 
@@ -97,6 +106,7 @@ from mpitest_tpu_torch.ops.keys import (
 )
 from mpitest_tpu_torch.ops.pack import CHUNK
 from mpitest_tpu_torch.parallel.mesh import Mesh
+from mpitest_tpu_torch.utils import flight_recorder
 from mpitest_tpu_torch.utils import io as kio
 from mpitest_tpu_torch.utils import knobs
 from mpitest_tpu_torch.utils.trace import Tracer
@@ -106,6 +116,72 @@ __all__ = ["DistributedSortResult", "SortFaultError", "SortIntegrityError",
            "resolve_device", "sort"]
 
 Words = tuple[torch.Tensor, ...]
+
+#: Program keys this process has run at least once: the first call of a
+#: key (a label plus the static shape the reference's jit cache keys on)
+#: is ``jit_compile_execute`` and pays the kernel build and load where
+#: they happen (``ops/_build.py``); later calls are ``jit_execute``.
+_warm_programs: set[tuple] = set()
+
+
+def _traced_call(tracer: Tracer, label: str, key: tuple, fn: Callable[..., Any],
+                 *args: Any, **attrs: object) -> Any:
+    """Call ``fn(*args)`` under a span that separates the first call of the
+    program key ``(label,) + key`` from later ones (the reference's
+    compile/execute split).  The span times the enqueue of the call's CUDA
+    work, not its execution."""
+    prog = (label,) + tuple(key)
+    first = prog not in _warm_programs
+    name = "jit_compile_execute" if first else "jit_execute"
+    with tracer.spans.span(name, label=label, **attrs):
+        out = fn(*args)
+    if first:
+        _warm_programs.add(prog)
+        tracer.count("jit_first_calls", 1)
+    return out
+
+
+def _dtype_name(x: Any) -> str | None:
+    """The input's dtype by its numpy name (``"int32"``, also for a
+    ``torch.dtype``), the form span attributes carry; None without one."""
+    dt = getattr(x, "dtype", None)
+    if dt is None:
+        return None
+    if isinstance(dt, torch.dtype):
+        try:
+            return numpy_dtype(dt).name
+        except (KeyError, TypeError, ValueError):
+            return str(dt).removeprefix("torch.")
+    return np.dtype(dt).name
+
+
+def device_mem_peak(mesh: Mesh | None) -> int:
+    """Peak card memory high-water over the mesh's CUDA devices (every card
+    of the process without a mesh): the largest
+    ``torch.cuda.max_memory_allocated`` among them, 0 when none is a card.
+    A process-lifetime high-water like the reference's
+    ``peak_bytes_in_use``, never reset here; reading it needs no sync.
+    Never raises."""
+    try:
+        if mesh is not None:
+            devices: Iterable[torch.device] = mesh.devices
+        elif torch.cuda.is_available():
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+        else:
+            return 0
+        cards = {d for d in devices if d.type == "cuda"}
+        return max((int(torch.cuda.max_memory_allocated(d)) for d in cards),
+                   default=0)
+    except Exception:  # noqa: BLE001 — telemetry never breaks the sort
+        return 0
+
+
+def _device_mem_high_water(span: Any, mesh: Mesh) -> None:
+    """Attach :func:`device_mem_peak` to ``span`` when nonzero."""
+    peak = device_mem_peak(mesh)
+    if peak:
+        span.attrs["device_mem_peak_bytes"] = peak
 
 
 @dataclass
@@ -277,19 +353,24 @@ def _local_pair_sort(x: Any, is_device: bool, codec: KeyCodec,
     if all(same):  # all keys identical: already sorted
         tracer.counters["local_engine"] = _PAIR_CODES[0]
         return words
+    key = (n, device.type)
     for const_w, sort_w in ((0, 1), (1, 0)):
         if same[const_w]:
             tracer.counters["local_engine"] = f"bitonic_1w{sort_w}"
             with tracer.phase("sort"):
-                s_out = kernels.local_sort((words[sort_w],), engine=one_w)[0]
+                s_out = _traced_call(tracer, "local_1w", key + (one_w,),
+                                     kernels.local_sort, (words[sort_w],),
+                                     one_w)[0]
             return (words[0], s_out) if sort_w == 1 else (s_out, words[1])
     if dup:
         tracer.counters["local_engine"] = _PAIR_CODES[3]
         tracer.count("pair_dup_reroute", 1)
         with tracer.phase("sort"):
-            return kernels.local_sort(words, engine="lax")
+            return _traced_call(tracer, "local_2w_lax", key, kernels.local_sort,
+                                words, "lax")
     with tracer.phase("sort"):
-        hi_s, lo_s, bad = kernels.sort_two_words_bitonic(*words)
+        hi_s, lo_s, bad = _traced_call(tracer, "pair_sort", key,
+                                       kernels.sort_two_words_bitonic, *words)
         bad = bool(bad)
     tracer.counters["local_engine"] = _PAIR_CODES[5 if bad and is_device else 4]
     if not bad:
@@ -298,7 +379,8 @@ def _local_pair_sort(x: Any, is_device: bool, codec: KeyCodec,
                    "sniff missed); falling back to the lax sort")
     tracer.count("pair_residual_fallback", 1)
     with tracer.phase("sort"):
-        return kernels.local_sort(words, engine="lax")
+        return _traced_call(tracer, "local_2w_lax", key, kernels.local_sort,
+                            words, "lax")
 
 
 def resolve_device(x: Any, device: torch.device | str | None) -> torch.device:
@@ -333,12 +415,14 @@ def ingest_to_mesh(x: Any, mesh: Mesh | None = None, tracer: Tracer | None = Non
     and pinned copies on a side stream) over host keys ``x`` onto ``mesh``
     (default: one rank on the card) and return the :class:`StagedIngest`
     that :func:`sort` takes in place of raw keys.  The ``ingest.*`` spans
-    land on ``tracer`` under an ``ingest`` span."""
+    land on ``tracer`` under an ``ingest`` span, streamed to ``SORT_TRACE``
+    as in :func:`sort`."""
     if mesh is None:
         from mpitest_tpu_torch.parallel.mesh import make_mesh
 
         mesh = make_mesh(1)
     tracer = tracer or Tracer()
+    _stream_trace(tracer)
     arr = np.asarray(x)
     with tracer.spans.span("ingest", n=int(arr.size), dtype=str(arr.dtype)):
         return stream_to_mesh(arr, mesh, tracer=tracer, chunk_elems=chunk_elems,
@@ -390,12 +474,17 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
     ``return_result`` and ``exchange_engine`` do not apply.
 
     ``device`` names the card (or ``"cpu"``) of a run without a mesh;
-    ``device`` and ``mesh`` exclude each other."""
+    ``device`` and ``mesh`` exclude each other.
+
+    ``SORT_TRACE=<path>`` streams the run's spans as JSONL; a typed error
+    (:class:`SortFaultError`) leaving the call dumps the flight recorder's
+    ring (``SORT_FLIGHT_RECORDER_DIR``) before it propagates."""
     if algorithm not in ("radix", "sample"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if mesh is not None and device is not None:
         raise ValueError("pass either device or mesh, not both")
     tracer = tracer or Tracer()
+    _stream_trace(tracer)
     if payload is not None:
         from mpitest_tpu_torch.models import records
 
@@ -423,17 +512,37 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
         size = getattr(x, "numel", None)
         n = int(size()) if callable(size) else int(np.asarray(x).size)
     if mesh is not None and mesh.size > 1:
-        with tracer.spans.span("sort", algorithm=algorithm, n=n,
-                               dtype=str(getattr(x, "dtype", "")) or None,
-                               ranks=mesh.size):
+        run_mesh, where = mesh, {"ranks": mesh.size}
+
+        def run() -> Any:
             return _sort_mesh(x, algorithm, mesh, tracer, return_result,
                               digit_bits, cap_factor, oversample, pack,
                               exchange_engine)
-    dev = resolve_device(x, mesh.devices[0] if mesh is not None else device)
+    else:
+        dev = resolve_device(x, mesh.devices[0] if mesh is not None else device)
+        run_mesh, where = Mesh((dev,)), {"device": str(dev)}
+
+        def run() -> Any:
+            return _sort_impl(x, dev, tracer, return_result, exchange_engine)
     with tracer.spans.span("sort", algorithm=algorithm, n=n,
-                           dtype=str(getattr(x, "dtype", "")) or None,
-                           device=str(dev)):
-        return _sort_impl(x, dev, tracer, return_result, exchange_engine)
+                           dtype=_dtype_name(x), **where) as sp:
+        try:
+            out = run()
+        except SortFaultError as e:
+            # a typed terminal error leaves an artifact: the ring's last
+            # spans (this run's verdicts included), rate-limited per reason
+            flight_recorder.dump_on_error(type(e).__name__)
+            raise
+        _device_mem_high_water(sp, run_mesh)
+    return out
+
+
+def _stream_trace(tracer: Tracer) -> None:
+    """``SORT_TRACE=<path>``: stream the tracer's spans there, unless the
+    caller already gave its log a stream."""
+    trace_path = knobs.get("SORT_TRACE")
+    if trace_path and tracer.spans.stream_path is None:
+        tracer.spans.stream_path = trace_path
 
 
 def _check_result(tracer: Tracer, res: DistributedSortResult,
@@ -441,9 +550,10 @@ def _check_result(tracer: Tracer, res: DistributedSortResult,
     """Run the verifier on a result; True = verified."""
     with tracer.phase("verify"):
         sorted_ok, fp_ok = vfy.verify_result(res, fp)
+    sorted_ok, fp_ok = bool(sorted_ok), bool(fp_ok)
     tracer.count("verify_runs", 1)
     tracer.spans.event("verify", ok=sorted_ok and fp_ok,
-                       sorted_ok=sorted_ok, fp_ok=fp_ok, n=res.n_valid)
+                       sorted_ok=sorted_ok, fp_ok=fp_ok, n=int(res.n_valid))
     if not (sorted_ok and fp_ok):
         tracer.verbose(f"output verification FAILED (sorted={sorted_ok}, "
                        f"fingerprint={fp_ok})")
@@ -508,8 +618,10 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
         if verify_on:
             fp_in = vfy.fingerprint_device_input(x, dtype)
         with tracer.phase("sort"):
-            out = kernels.local_sort(codec.encode_torch(x.reshape(-1)),
-                                     engine=resolved)
+            out = _traced_call(
+                tracer, "local_device", (dtype.name, resolved, N, device.type),
+                lambda: kernels.local_sort(codec.encode_torch(x.reshape(-1)),
+                                           engine=resolved))
     else:
         with tracer.phase("encode"):
             words_np = codec.encode(x.reshape(-1))
@@ -524,7 +636,9 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
                        for d in _word_diffs(words_np))
                  if resolved == "radix_pallas" else None)
         with tracer.phase("sort"):
-            out = kernels.local_sort(words, engine=resolved, diffs=diffs)
+            out = _traced_call(tracer, "local",
+                               (codec.n_words, resolved, diffs, N, device.type),
+                               kernels.local_sort, words, resolved, diffs)
     return _finish_local(DistributedSortResult(out, N, dtype), fp_in)
 
 
@@ -552,7 +666,10 @@ def _sort_staged_local(staged: StagedIngest, device: torch.device, tracer: Trace
     if donate:
         staged.consumed = True
     with tracer.phase("sort"):
-        out = kernels.local_sort(words, engine=resolved, diffs=diffs)
+        out = _traced_call(tracer, "local",
+                           (codec.n_words, resolved, diffs,
+                            int(words[0].numel()), device.type),
+                           kernels.local_sort, words, resolved, diffs)
     if donate:
         staged.words = []
     del words   # the last reference here: the verifier runs without them
@@ -800,6 +917,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     eng = _resolve_exchange_engine(exchange_engine)
     tracer.counters["exchange_engine"] = eng
     leng0 = _local_engine()
+    dev_type = mesh.devices[0].type
     verify_on = supervision.verify_enabled()
 
     words_np = None
@@ -820,7 +938,9 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
             rebuild_words = lambda: staged.rebuild().words  # noqa: E731
     elif is_device:
         with tracer.phase("encode"):
-            dev_words, words = _device_shards(x, codec, dtype, mesh, n)
+            dev_words, words = _traced_call(
+                tracer, "encode_pad", (dtype.name, N, n_ranks, x.device.type),
+                _device_shards, x, codec, dtype, mesh, n)
         rebuild_words = lambda: _device_shards(x, codec, dtype, mesh, n)[1]  # noqa: E731
     else:
         flat = x.reshape(-1)
@@ -894,7 +1014,9 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         if state["restaged"]:
             return
         with tracer.spans.span("restage", ranks=n_ranks, n=n):
-            state["words"] = _interleave(live_words(), mesh)
+            state["words"] = _traced_call(
+                tracer, "interleave", (codec.n_words, n, n_ranks, dev_type),
+                _interleave, live_words(), mesh)
         state["restaged"] = True
         tracer.count("skew_restage", 1)
         tracer.verbose("skew re-stage: interleaved shards to rebalance the exchange")
@@ -934,9 +1056,16 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
 
     def probe(kind: str, db: int | None) -> np.ndarray:
         with tracer.phase("plan"):
-            m = (radix_sort.radix_probe_spmd(live_words(), db, n_ranks)
-                 if kind == "radix" else
-                 sample_sort.sample_probe_spmd(live_words(), n_ranks, oversample))
+            if kind == "radix":
+                m = _traced_call(tracer, "radix_probe",
+                                 (codec.n_words, n, db, n_ranks, dev_type),
+                                 radix_sort.radix_probe_spmd, live_words(), db,
+                                 n_ranks)
+            else:
+                m = _traced_call(tracer, "sample_probe",
+                                 (codec.n_words, n, oversample, n_ranks, dev_type),
+                                 sample_sort.sample_probe_spmd, live_words(),
+                                 n_ranks, oversample)
             return m.cpu().numpy()
 
     def negotiate_counts(kind: str, db: int | None = None) -> np.ndarray:
@@ -966,9 +1095,15 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
 
         def attempt(c: int) -> tuple[object, int]:
             with tracer.phase("sort"):
-                out, max_cnt = radix_sort.radix_sort_spmd(
-                    live_words(), codec.n_words, db, n_ranks, c, passes,
-                    pack=eff_pack, exchange_engine=eng, local_engine=radix_leng)
+                out, max_cnt = _traced_call(
+                    tracer, "radix_spmd",
+                    (codec.n_words, n, db, c, passes, eff_pack, eng, radix_leng,
+                     n_ranks, dev_type),
+                    lambda: radix_sort.radix_sort_spmd(
+                        live_words(), codec.n_words, db, n_ranks, c, passes,
+                        pack=eff_pack, exchange_engine=eng,
+                        local_engine=radix_leng),
+                    n=n, cap=c, passes=passes, digit_bits=db, ranks=n_ranks)
                 mark_dead()
                 max_cnt = int(max_cnt)
             tracer.count("exchange_bytes",
@@ -1010,9 +1145,14 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
 
         def attempt(c: int) -> tuple[object, int]:
             with tracer.phase("sort"):
-                out, counts, max_cnt = sample_sort.sample_sort_spmd(
-                    live_words(), codec.n_words, n_ranks, c, oversample,
-                    pack=eff_pack, engine=spmd_engine, exchange_engine=eng)
+                out, counts, max_cnt = _traced_call(
+                    tracer, "sample_spmd",
+                    (codec.n_words, n, c, oversample, eff_pack, spmd_engine, eng,
+                     n_ranks, dev_type),
+                    lambda: sample_sort.sample_sort_spmd(
+                        live_words(), codec.n_words, n_ranks, c, oversample,
+                        pack=eff_pack, engine=spmd_engine, exchange_engine=eng),
+                    n=n, cap=c, ranks=n_ranks)
                 mark_dead()
                 max_cnt = int(max_cnt)
             tracer.count("exchange_bytes",

@@ -16,19 +16,38 @@ Every function here runs all ranks: per-rank values are lists (see
 sorts (``torch.sort``, stable where the reference asks for it); under
 ``radix_pallas`` pass 1 runs the fused radix kernel (K4) with the key
 words as payload planes.
+
+Telemetry: each pass opens a ``radix_pass`` span and the count probe a
+``negotiate_probe`` span on the active span log (``utils/spans.py``), so
+the collectives' point events nest under them.  The spans time the host
+enqueue of the pass, on every run.
 """
 
 from __future__ import annotations
 
 from collections.abc import Sequence
 
+import contextlib
+
 import torch
 
 from mpitest_tpu_torch.ops import exchange as xeng
 from mpitest_tpu_torch.ops import kernels, radix
 from mpitest_tpu_torch.parallel import collectives as coll
+from mpitest_tpu_torch.utils import spans
 
 Words = tuple[torch.Tensor, ...]
+
+
+def _pass_span(k: int, w_idx: int, shift: int, digit_bits: int, n: int, cap: int
+               ) -> "contextlib.AbstractContextManager[spans.Span | None]":
+    """Span of one radix pass, with the reference's attributes; the pass's
+    collectives nest under it.  ``trace_time`` is False: the span is the
+    host wall of enqueueing this pass on every run, not of tracing a
+    compile."""
+    return spans.maybe_span("radix_pass", pass_index=k, word=w_idx,
+                            shift=shift, digit_bits=digit_bits, n=n,
+                            cap=cap, trace_time=False)
 
 
 def _lane_slots(recv_cnt: torch.Tensor, H: torch.Tensor, digit_base: torch.Tensor,
@@ -75,12 +94,14 @@ def radix_probe_spmd(words: Sequence[Words], digit_bits: int,
     rank 0's device."""
     n = words[0][0].numel()
     n_bins = 1 << digit_bits
-    hs = [kernels.histogram_sorted(
-        torch.sort(kernels.digit_at(w[-1], 0, digit_bits)).values, n_bins)[0]
-        for w in words]
-    H, _, _ = coll.exscan_counts(hs)
-    mine = [coll.block_send_counts(H[r], n, r) for r in range(n_ranks)]
-    return torch.stack([m.to(mine[0].device) for m in mine])
+    with spans.maybe_span("negotiate_probe", algorithm="radix",
+                          ranks=n_ranks, n=n, trace_time=False):
+        hs = [kernels.histogram_sorted(
+            torch.sort(kernels.digit_at(w[-1], 0, digit_bits)).values, n_bins)[0]
+            for w in words]
+        H = coll.all_gather(hs)                                   # [P, bins]
+        mine = [coll.block_send_counts(H[r], n, r) for r in range(n_ranks)]
+        return coll.all_gather(mine)[0]                           # [P, P]
 
 
 def _plan(n_words: int, digit_bits: int, passes: int | None) -> list[tuple[int, int]]:
@@ -153,47 +174,48 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
     recv = recv_cnt = None
     prev = None          # lax engine: (H, digit_base, rank_base) per rank
     slot_carry = None    # pallas engine: the lane slots from pre_exchange
-    for w_idx, shift in plan:
-        sds, sorted_words = [], []
-        for r in range(n_ranks):
-            if recv is None:
-                sd, sw = _first_pass(words[r], w_idx, shift, digit_bits, local_engine)
-            else:
-                slot = slot_carry[r] if fused else _lane_slots(
-                    recv_cnt[r], *prev[r], n, cap, r)
-                sd, sw = _merge_pass(recv[r], recv_cnt[r], slot, w_idx, shift,
-                                     digit_bits, n)
-            sds.append(sd)
-            sorted_words.append(sw)
-        recv = slot_carry = None
-
-        hist = [kernels.histogram_sorted(sd, n_bins) for sd in sds]
-        H, tot, rank_base = coll.exscan_counts([h for h, _ in hist])
-        digit_base = [coll.exclusive_cumsum(t) for t in tot]
-        base = [digit_base[r] + rank_base[r][r] for r in range(n_ranks)]
-        if fused:
-            segs = [coll.block_send_segments(hist[r][0], base[r], n, n_ranks)
-                    for r in range(n_ranks)]
-
-            def _pre(r: int, rc: torch.Tensor, H=H, db=digit_base,
-                     rb=rank_base) -> torch.Tensor:
-                return _lane_slots(rc, H[r], db[r], rb[r], n, cap, r)
-
-            recv, recv_cnt, mc, slot_carry = coll.ragged_all_to_all(
-                sorted_words, [s for s, _ in segs], [c for _, c in segs], cap,
-                n_ranks, pack=pack, engine=exchange_engine, pre_exchange=_pre)
-        else:
-            segs = []
+    for k, (w_idx, shift) in enumerate(plan):
+        with _pass_span(k + 1, w_idx, shift, digit_bits, n, cap):
+            sds, sorted_words = [], []
             for r in range(n_ranks):
-                _, lo_local = hist[r]
-                dest = (kernels.piecewise_fill(lo_local, base[r] - lo_local, n)
-                        + torch.arange(n, dtype=torch.int32, device=lo_local.device))
-                segs.append(_send_segments(dest, n, n_ranks))
-            recv, recv_cnt, mc = coll.ragged_all_to_all(
-                sorted_words, [s for s, _ in segs], [c for _, c in segs], cap,
-                n_ranks, pack=pack, engine=exchange_engine)
-            prev = [(H[r], digit_base[r], rank_base[r]) for r in range(n_ranks)]
-        del sorted_words, sds
+                if recv is None:
+                    sd, sw = _first_pass(words[r], w_idx, shift, digit_bits, local_engine)
+                else:
+                    slot = slot_carry[r] if fused else _lane_slots(
+                        recv_cnt[r], *prev[r], n, cap, r)
+                    sd, sw = _merge_pass(recv[r], recv_cnt[r], slot, w_idx, shift,
+                                         digit_bits, n)
+                sds.append(sd)
+                sorted_words.append(sw)
+            recv = slot_carry = None
+
+            hist = [kernels.histogram_sorted(sd, n_bins) for sd in sds]
+            H, tot, rank_base = coll.exscan_counts([h for h, _ in hist])
+            digit_base = [coll.exclusive_cumsum(t) for t in tot]
+            base = [digit_base[r] + rank_base[r][r] for r in range(n_ranks)]
+            if fused:
+                segs = [coll.block_send_segments(hist[r][0], base[r], n, n_ranks)
+                        for r in range(n_ranks)]
+
+                def _pre(r: int, rc: torch.Tensor, H=H, db=digit_base,
+                         rb=rank_base) -> torch.Tensor:
+                    return _lane_slots(rc, H[r], db[r], rb[r], n, cap, r)
+
+                recv, recv_cnt, mc, slot_carry = coll.ragged_all_to_all(
+                    sorted_words, [s for s, _ in segs], [c for _, c in segs], cap,
+                    n_ranks, pack=pack, engine=exchange_engine, pre_exchange=_pre)
+            else:
+                segs = []
+                for r in range(n_ranks):
+                    _, lo_local = hist[r]
+                    dest = (kernels.piecewise_fill(lo_local, base[r] - lo_local, n)
+                            + torch.arange(n, dtype=torch.int32, device=lo_local.device))
+                    segs.append(_send_segments(dest, n, n_ranks))
+                recv, recv_cnt, mc = coll.ragged_all_to_all(
+                    sorted_words, [s for s, _ in segs], [c for _, c in segs], cap,
+                    n_ranks, pack=pack, engine=exchange_engine)
+                prev = [(H[r], digit_base[r], rank_base[r]) for r in range(n_ranks)]
+            del sorted_words, sds
         max_cnt = torch.maximum(max_cnt, mc.to(dev0))
 
     out = []

@@ -9,6 +9,10 @@ ragged exchange, and one local sort of the received ``[P, cap]`` lanes,
 whose invalid lanes carry the maximum word and sort to the tail.  The
 cap is honest: the exchange reports its largest segment and the caller
 regrows.  Per-rank values are lists (``parallel/collectives.py``).
+
+Telemetry: the splitter selection opens a ``splitter_round`` span and the
+count probe a ``negotiate_probe`` span on the active span log
+(``utils/spans.py``); the sample all_gather nests under them.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 from mpitest_tpu_torch.ops import kernels
 from mpitest_tpu_torch.ops.keys import MAX_WORD
 from mpitest_tpu_torch.parallel import collectives as coll
+from mpitest_tpu_torch.utils import spans
 
 Words = tuple[torch.Tensor, ...]
 
@@ -29,16 +34,20 @@ def select_splitters(sorted_words: Sequence[Words], n_ranks: int,
     """``oversample`` evenly spaced samples per sorted shard, gathered in
     rank order, sorted (``lax``), and the P-1 picks at ``i*m // P`` —
     identical on every rank.  Returns the splitters per rank."""
-    samples = [kernels.evenly_spaced_samples(sw, oversample) for sw in sorted_words]
-    n_words = len(samples[0])
-    gathered = tuple(coll.all_gather([s[k] for s in samples])[0].reshape(-1)
-                     for k in range(n_words))
-    gsorted = kernels.local_sort(gathered)
-    m = n_ranks * oversample
-    idx = (torch.arange(1, n_ranks, dtype=torch.int64, device=gsorted[0].device)
-           * m) // n_ranks
-    picks = tuple(w[idx] for w in gsorted)
-    return [tuple(p.to(sw[0].device) for p in picks) for sw in sorted_words]
+    n_words = len(sorted_words[0])
+    with spans.maybe_span("splitter_round", ranks=n_ranks, oversample=oversample,
+                          trace_time=False,
+                          sample_bytes=n_ranks * oversample * 4 * n_words):
+        samples = [kernels.evenly_spaced_samples(sw, oversample)
+                   for sw in sorted_words]
+        gathered = tuple(coll.all_gather([s[k] for s in samples])[0].reshape(-1)
+                         for k in range(n_words))
+        gsorted = kernels.local_sort(gathered)
+        m = n_ranks * oversample
+        idx = (torch.arange(1, n_ranks, dtype=torch.int64, device=gsorted[0].device)
+               * m) // n_ranks
+        picks = tuple(w[idx] for w in gsorted)
+        return [tuple(p.to(sw[0].device) for p in picks) for sw in sorted_words]
 
 
 def _strided_sample(n: int, s: int) -> tuple[int, int, int]:
@@ -59,12 +68,14 @@ def sample_probe_spmd(words: Sequence[Words], n_ranks: int,
     n = words[0][0].numel()
     s = min(n, max(64, 32 * n_ranks))
     start, stride, s = _strided_sample(n, s)
-    samp = [kernels.local_sort(tuple(w[start: start + (s - 1) * stride + 1: stride]
-                                     for w in ws)) for ws in words]
-    splitters = select_splitters(samp, n_ranks, min(oversample, s))
-    hs = [kernels.histogram(kernels.searchsorted_words(sp, ws), n_ranks)
-          for sp, ws in zip(splitters, words)]
-    return coll.all_gather(hs)[0]
+    with spans.maybe_span("negotiate_probe", algorithm="sample",
+                          ranks=n_ranks, n=n, trace_time=False):
+        samp = [kernels.local_sort(tuple(w[start: start + (s - 1) * stride + 1: stride]
+                                         for w in ws)) for ws in words]
+        splitters = select_splitters(samp, n_ranks, min(oversample, s))
+        hs = [kernels.histogram(kernels.searchsorted_words(sp, ws), n_ranks)
+              for sp, ws in zip(splitters, words)]
+        return coll.all_gather(hs)[0]
 
 
 def sample_sort_spmd(words: Sequence[Words], n_words: int, n_ranks: int, cap: int,

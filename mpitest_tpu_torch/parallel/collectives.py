@@ -11,6 +11,12 @@ never reads another rank's device outside a collective.
 count exchange, the pack of each rank's contiguous segments into a
 ``[P, cap]`` send matrix (K5, K6 or plain scatter), the transport (K7 or
 per-block copies), and the overflow report (``max_send_cnt > cap``).
+
+Telemetry: :func:`all_gather`, :func:`psum`, :func:`pmax` and
+:func:`ragged_all_to_all` each record one point event on the active span
+log (``utils/spans.py``) with the reference's byte accounting.  The port
+has no trace time, so the events come on every run (the reference's once
+per compile); they carry bytes, never time.
 """
 
 from __future__ import annotations
@@ -22,9 +28,25 @@ import torch
 
 from mpitest_tpu_torch.ops import exchange as xeng
 from mpitest_tpu_torch.ops import kernels, pack as kpack
+from mpitest_tpu_torch.parallel.mesh import AXIS
+from mpitest_tpu_torch.utils import spans
 
 Words = tuple[torch.Tensor, ...]
 PerRank = list
+
+
+def _emit_collective(name: str, xs: Sequence[torch.Tensor], **attrs: object) -> None:
+    """One point event per collective call: ``bytes`` is the per-rank
+    payload entering it, ``bytes_out`` (all_gather) the per-rank result,
+    ``ranks`` the participants.  Sizes come from shapes: no host read."""
+    log = spans.current_log()
+    if log is None:
+        return
+    b_in = int(xs[0].numel()) * xs[0].element_size()
+    attrs.setdefault("ranks", len(xs))
+    if name == "all_gather":
+        attrs.setdefault("bytes_out", b_in * len(xs))
+    log.event(name, bytes=b_in, axis=AXIS, **attrs)
 
 
 def _on(xs: Sequence[torch.Tensor], t: torch.Tensor) -> PerRank:
@@ -36,18 +58,21 @@ def _on(xs: Sequence[torch.Tensor], t: torch.Tensor) -> PerRank:
 def all_gather(xs: Sequence[torch.Tensor]) -> PerRank:
     """``MPI_Allgather``: every rank gets the ``[P, ...]`` stack, in rank
     order."""
+    _emit_collective("all_gather", xs)
     stacked = torch.stack([x.to(xs[0].device) for x in xs])
     return _on(xs, stacked)
 
 
 def psum(xs: Sequence[torch.Tensor]) -> PerRank:
     """``MPI_Allreduce(SUM)``."""
+    _emit_collective("psum", xs, op="sum")
     total = torch.stack([x.to(xs[0].device) for x in xs]).sum(0)
     return _on(xs, total.to(xs[0].dtype))
 
 
 def pmax(xs: Sequence[torch.Tensor]) -> PerRank:
     """``MPI_Allreduce(MAX)``."""
+    _emit_collective("pmax", xs, op="max")
     return _on(xs, torch.stack([x.to(xs[0].device) for x in xs]).amax(0))
 
 
@@ -61,7 +86,8 @@ def exscan_counts(hs: Sequence[torch.Tensor]
     """Global exclusive scan of per-rank count vectors: per rank
     ``(H, tot, rank_base)`` with ``H`` the ``[P, B]`` gathered histograms,
     ``tot[b] = sum_r H[r, b]`` and ``rank_base[r, b] = sum_{r'<r} H[r', b]``
-    (the ``MPI_Exscan``, computed replicated)."""
+    (the ``MPI_Exscan``, computed replicated after one all_gather)."""
+    _emit_collective("all_gather", hs)
     H = torch.stack([h.to(hs[0].device) for h in hs])
     tot = H.sum(0, dtype=H.dtype)
     rank_base = exclusive_cumsum(H, 0)
@@ -148,6 +174,19 @@ def ragged_all_to_all(
     n_words = len(arrays[0])
     fills = tuple(fill) if fill is not None else (0,) * n_words
     use_pallas = xeng.is_pallas(engine)
+    if use_pallas:
+        pack = engine   # the engine owns its fused pack
+    log = spans.current_log()
+    if log is not None:
+        # the padded exchange ships a [P, cap] block matrix per plane, of
+        # which the self block never crosses a link, plus the int32[P]
+        # count exchange
+        itemsize = sum(a.element_size() for a in arrays[0])
+        log.event("ragged_all_to_all",
+                  bytes=n_ranks * cap * itemsize + n_ranks * 4,
+                  wire_bytes=(n_ranks - 1) * cap * itemsize + (n_ranks - 1) * 4,
+                  ranks=n_ranks, cap=cap, n=int(arrays[0][0].numel()),
+                  arrays=n_words, pack=pack, engine=engine, axis=AXIS)
     # explicit count exchange: recv_cnt[me][s] = min(send_cnt[s][me], cap)
     sent = torch.stack([c.to(send_cnt[0].device) for c in send_cnt]).clamp(max=cap)
     recv_cnt = [sent[:, me].to(c.device).contiguous() for me, c in enumerate(send_cnt)]

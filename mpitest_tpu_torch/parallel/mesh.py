@@ -25,6 +25,10 @@ import torch
 
 from mpitest_tpu_torch.utils import knobs
 
+#: Name of the mesh's one key axis (the reference's), carried by the
+#: collectives' span events.
+AXIS = "x"
+
 
 @dataclass(frozen=True)
 class Mesh:

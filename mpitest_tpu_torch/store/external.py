@@ -44,8 +44,10 @@ deleted.
 
 Telemetry: ``external.run`` / ``external.merge`` / ``external.resume`` /
 ``external.gc`` spans and the ``external.recover`` event on the tracer's
-span log, and the ``external_runs`` / ``external_disk_bytes`` /
-``external_merge_passes`` / ``external_recoveries`` counters.
+span log (streamed to ``SORT_TRACE`` as in ``sort()``), and the
+``external_runs`` / ``external_disk_bytes`` / ``external_merge_passes`` /
+``external_recoveries`` counters.  A typed error leaving the sort dumps
+the flight recorder's ring.
 """
 
 from __future__ import annotations
@@ -63,13 +65,13 @@ import torch
 
 from mpitest_tpu_torch.models.records import as_payload_matrix, words_to_payload
 from mpitest_tpu_torch.models.segmented import lex_sorted_host
-from mpitest_tpu_torch.models.supervisor import SortIntegrityError
+from mpitest_tpu_torch.models.supervisor import SortFaultError, SortIntegrityError
 from mpitest_tpu_torch.ops.keys import codec_for
 from mpitest_tpu_torch.store import aio
 from mpitest_tpu_torch.store import manifest as mfstlib
 from mpitest_tpu_torch.store import merge as mergelib
 from mpitest_tpu_torch.store import runs as runlib
-from mpitest_tpu_torch.utils import knobs
+from mpitest_tpu_torch.utils import flight_recorder, knobs
 from mpitest_tpu_torch.utils.trace import Tracer
 
 #: Host-memory multiplier per record during partition/sort: the raw
@@ -362,6 +364,9 @@ def _external_core(
     dataset: str | None = None,
 ) -> ExternalResult:
     tracer = tracer or Tracer()
+    trace_path = knobs.get("SORT_TRACE")
+    if trace_path and tracer.spans.stream_path is None:
+        tracer.spans.stream_path = trace_path
     budget = _budget() if budget is None else int(budget)
     if budget <= 0:
         raise ValueError(
@@ -490,6 +495,9 @@ def _external_core(
         # remove_run is idempotent
         for r in run_infos:
             runlib.remove_run(r)
+        if isinstance(e, SortFaultError):
+            # a typed terminal error leaves the flight recorder's ring
+            flight_recorder.dump_on_error(type(e).__name__)
         if isinstance(e, OSError) and e.errno == errno.ENOSPC \
                 and not isinstance(e, SpillCapacityError):
             # in-flight partial outputs were already deleted at their

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 import os
+import tempfile
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -293,10 +294,49 @@ register("SORT_OVERSAMPLE", None,
          "Samples per shard for sample sort's splitter selection (default 2P-1).",
          _parse_positive_or_unset("SORT_OVERSAMPLE", "use an integer >= 1"))
 
-# Reference knobs whose subsystems are not ported: the CLI refuses to run
-# with any of them set rather than silently ignore it.
-for _name, _doc in (("SORT_FAULTS", "Fault-injection plan (not ported)."),
-                    ("SORT_METRICS", "Metrics sidecar path (not ported)."),
-                    ("SORT_TRACE", "Span-log JSONL path (not ported)."),
-                    ("SORT_PROFILE", "Profiler trace directory (not ported).")):
-    register(_name, None, _doc, _passthrough)
+# Observability sidecar paths (off when unset: the byte-compatible CLI
+# contract is untouched by default).
+register("SORT_TRACE", None,
+         "Stream the structured span log as JSONL to this path.",
+         _passthrough)
+register("SORT_TRACE_CHROME", None,
+         "Write the run's Chrome trace-event JSON (Perfetto) here.",
+         _passthrough)
+register("SORT_METRICS", None,
+         "Append one JSON metrics sidecar line per run to this path.",
+         _passthrough)
+register("SORT_PROFILE", None,
+         "Capture a torch.profiler trace of the sort (CUDA activity on a "
+         "card) into this logdir.",
+         _passthrough)
+
+
+def _parse_sample(raw: str) -> float:
+    try:
+        v = float(raw)
+    except ValueError:
+        v = 0.0
+    if not (math.isfinite(v) and 0.0 < v <= 1.0):
+        raise KnobError(f"SORT_TRACE_SAMPLE={raw!r}: use a number in "
+                        "(0, 1]")
+    return v
+
+
+register("SORT_TRACE_SAMPLE", 1.0,
+         "Down-sample the SORT_TRACE stream: keep ~this fraction of "
+         "top-level spans (whole subtrees; the flight recorder still sees "
+         "everything).",
+         _parse_sample)
+register("SORT_FLIGHT_RECORDER_SIZE", 2048,
+         "Flight-recorder ring capacity: recent spans kept in memory for "
+         "incident dumps on typed errors (0 disables).",
+         _int("SORT_FLIGHT_RECORDER_SIZE", 0))
+# the reference's /tmp/mpitest_flightrec, under the process's TMPDIR
+register("SORT_FLIGHT_RECORDER_DIR",
+         os.path.join(tempfile.gettempdir(), "mpitest_flightrec"),
+         "Directory flight-recorder dump artifacts land in.",
+         _passthrough)
+
+# A reference knob whose subsystem is not ported: the CLI refuses to run
+# with it set rather than silently ignore it.
+register("SORT_FAULTS", None, "Fault-injection plan (not ported).", _passthrough)

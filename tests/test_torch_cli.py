@@ -7,19 +7,25 @@ CPU ranks).
 Held equal: the exit code, every stdout line but the ``[VERBOSE]`` phase
 timings, and the stderr shape — the same lines, with the
 ``Endtime()-Starttime()`` value aside.  A file above ``SORT_MEM_BUDGET``
-takes the external leg in both.  What the port cannot take yet ends with
-one ``[ERROR]`` line and a nonzero exit.
+takes the external leg in both.  The observability sinks
+(``SORT_METRICS``, ``SORT_TRACE``, ``SORT_TRACE_CHROME``, ``SORT_PROFILE``)
+run in both; the sidecar carries the reference's config keys and metric
+names (the reference with ``SORT_PLAN=off``: plan records are not
+ported).  What the port cannot take yet ends with one ``[ERROR]`` line
+and a nonzero exit.
 """
 
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
 import re
 
 import numpy as np
 import pytest
 
+from mpitest_tpu import report
 from mpitest_tpu_torch import cli
 from mpitest_tpu_torch.utils import io as kio
 from mpitest_tpu_torch.utils.trace import Tracer
@@ -165,8 +171,25 @@ def test_knob_garbage_is_one_error_line(knob, value, int_file, capsys, monkeypat
     ({}, ["--explain"]),
 ], ids=["ranks", "mem_budget", "faults", "metrics", "trace", "profile", "explain"])
 def test_unported_inputs_end_with_one_error_line(env, argv_extra, int_file, capsys,
-                                                 monkeypatch):
+                                                 monkeypatch, tmp_path):
     path, _ = int_file
+    sink = next((k for k in ("SORT_METRICS", "SORT_TRACE", "SORT_PROFILE")
+                 if k in env), None)
+    if sink is not None:
+        # refused before the telemetry layer was ported; it now runs, line
+        # for line with the reference, and leaves its artifact
+        target = str(tmp_path / env[sink])
+        if sink == "SORT_PROFILE":   # the port alone: torch.profiler
+            monkeypatch.setenv(sink, target)
+            assert cli.main(["sort_cli", path], device="cpu") == 0
+            capsys.readouterr()
+            assert [f for f in os.listdir(target) if f.endswith(".pt.trace.json")]
+            return
+        rc, _ = _check_same([path], capsys, monkeypatch, **{sink: target})
+        assert rc == 0
+        rows = report.load_rows(target)
+        assert len(rows) >= 2 and report.check_rows(rows) == []
+        return
     if "SORT_RANKS" in env:
         # SORT_RANKS > 1 was refused before the distributed sort was
         # ported; it now runs and matches the reference line for line
@@ -243,6 +266,93 @@ def test_external_leg_matches_reference(ranks, algo, tmp_path, capsys, monkeypat
     capsys.readouterr()
     assert (tr.counters["external_runs"], tr.counters["external_merge_passes"]) == (4, 2)
     assert os.listdir(tmp_path / "spill") == []
+
+
+_REF_CONFIG = {"in-memory": {"algo", "n", "dtype", "ranks", "digit_bits"},
+               "external": {"algo", "n", "dtype", "ranks", "external"}}
+
+
+@pytest.mark.parametrize("leg", ["in-memory", "external"])
+@pytest.mark.parametrize("ranks", ["1", "2"])
+def test_metrics_sidecar_matches_reference(leg, ranks, tmp_path, capsys, monkeypatch):
+    """``SORT_METRICS`` on both legs: one line per run with the
+    reference's config keys and values and its metric names, plus the
+    port's ``encode_engine`` counter."""
+    x = np.random.default_rng(12).integers(-(2**31), 2**31 - 1, 4000 + int(ranks),
+                                           dtype=np.int32)
+    p = str(tmp_path / "k.bin")
+    kio.write_keys_binary(p, x)
+    env = {"SORT_ALGO": "radix", "SORT_RANKS": ranks, "SORT_PLAN": "off"}
+    if leg == "external":
+        env.update(SORT_MEM_BUDGET="4096", SORT_MERGE_FANIN="2",
+                   SORT_SPILL_DIR=str(tmp_path / "spill"), SORT_SPILL_COMPRESS="on")
+    sides = {}
+    for tag in ("port", "ref"):
+        env["SORT_METRICS"] = str(tmp_path / f"{tag}.jsonl")
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        if tag == "port":
+            assert cli.main(["sort_cli", p], device="cpu") == 0
+        else:
+            assert ref_cli.main(["sort_cli", p]) == 0
+        capsys.readouterr()
+        lines = (tmp_path / f"{tag}.jsonl").read_text().splitlines()
+        assert len(lines) == 1
+        sides[tag] = json.loads(lines[0])
+    got, want = sides["port"], sides["ref"]
+    assert set(got["config"]) == set(want["config"]) == _REF_CONFIG[leg]
+    assert got["config"] == want["config"]
+    # jit_first_calls appears only when this process meets the program
+    # for the first time, in either package; and one name more: the
+    # port's CLI counts the parser that read the file (encode_engine), the
+    # reference records it on its ingest spans only
+    warm = {"jit_first_calls"}
+    assert set(got["metrics"]) - warm == (set(want["metrics"]) - warm) | \
+        {"encode_engine"}
+    assert got["metrics"]["sort_mkeys_per_s"]["unit"] == "Mkeys/s"
+    # (exchange_bytes differs on the CPU: the reference's auto engine is
+    # lax there, with 128-aligned caps; the port's is pallas, 1024)
+    for name in ("exchange_passes", "digit_bits", "external_runs",
+                 "external_merge_passes"):
+        if name in want["metrics"]:
+            assert got["metrics"][name]["value"] == want["metrics"][name]["value"]
+    if ranks == "2" and leg == "in-memory":
+        assert "exchange_gb_per_s" in got["metrics"]
+
+
+_JIT = {"jit_compile_execute", "jit_execute"}
+
+
+def test_trace_and_chrome_sinks_of_the_cli(tmp_path, capsys, monkeypatch):
+    """``SORT_TRACE`` + ``SORT_TRACE_CHROME`` on two ranks: the JSONL passes
+    the reference's check with the reference's names, the Chrome file is
+    trace-event JSON.  The n is one no other test compiles: the reference
+    emits its collective events only when it compiles (which split of the
+    first call each package reports depends on what the process ran)."""
+    x = np.random.default_rng(13).integers(-(2**31), 2**31 - 1, 1237, dtype=np.int32)
+    path = str(tmp_path / "k.txt")
+    kio.write_keys_text(path, x)
+    names = {}
+    for tag in ("port", "ref"):
+        trace, chrome = tmp_path / f"{tag}.jsonl", tmp_path / f"{tag}.json"
+        for k, v in {"SORT_RANKS": "2", "SORT_ALGO": "radix", "SORT_PLAN": "off",
+                     "SORT_TRACE": str(trace), "SORT_TRACE_CHROME": str(chrome)
+                     }.items():
+            monkeypatch.setenv(k, v)
+        if tag == "port":
+            assert cli.main(["sort_cli", path], device="cpu") == 0
+        else:
+            assert ref_cli.main(["sort_cli", path]) == 0
+        capsys.readouterr()
+        rows = report.load_rows(str(trace))
+        assert report.check_rows(rows) == []
+        names[tag] = {r["name"] for r in rows}
+        assert names[tag] & _JIT
+        names[tag] -= _JIT
+        events = json.loads(chrome.read_text())["traceEvents"]
+        assert events[0]["args"]["name"] == "mpitest_tpu"
+        assert {"sort", "radix_pass"} <= {e["name"] for e in events}
+    assert names["port"] == names["ref"]
 
 
 def test_external_leg_bad_file_matches_reference(tmp_path, capsys, monkeypatch):

@@ -30,7 +30,10 @@ def test_import_pulls_in_no_jax():
             "mpitest_tpu_torch.store.runs, mpitest_tpu_torch.store.compress, "
             "mpitest_tpu_torch.store.aio, mpitest_tpu_torch.store.manifest, "
             "mpitest_tpu_torch.models.records, mpitest_tpu_torch.models.segmented, "
-            "mpitest_tpu_torch.models.ingest\n"
+            "mpitest_tpu_torch.models.ingest, mpitest_tpu_torch.utils.spans, "
+            "mpitest_tpu_torch.utils.trace, mpitest_tpu_torch.utils.metrics, "
+            "mpitest_tpu_torch.utils.timeline, mpitest_tpu_torch.utils.span_schema, "
+            "mpitest_tpu_torch.utils.flight_recorder\n"
             "mpitest_tpu_torch.external_sort\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mpitest_tpu' or "
@@ -59,7 +62,11 @@ def test_no_source_imports_jax_or_reference():
             "mpitest_tpu_torch/store/compress.py", "mpitest_tpu_torch/store/aio.py",
             "mpitest_tpu_torch/store/manifest.py", "mpitest_tpu_torch/models/records.py",
             "mpitest_tpu_torch/models/segmented.py",
-            "mpitest_tpu_torch/models/ingest.py"} <= names
+            "mpitest_tpu_torch/models/ingest.py", "mpitest_tpu_torch/utils/spans.py",
+            "mpitest_tpu_torch/utils/trace.py", "mpitest_tpu_torch/utils/metrics.py",
+            "mpitest_tpu_torch/utils/timeline.py",
+            "mpitest_tpu_torch/utils/span_schema.py",
+            "mpitest_tpu_torch/utils/flight_recorder.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
