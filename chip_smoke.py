@@ -126,6 +126,33 @@ Phases, each failing loudly (any exception exits non-zero):
              ``SORT_TRACE_CHROME`` (the sidecar's ``sort_mkeys_per_s``
              beside both timing lines); and a flight-recorder dump, held
              to the same check.
+             (k) the fault grid (``fault_phase``, with
+             ``SORT_RETRY_BACKOFF=0``): int32 2^28 from the host on eight
+             ranks, clean and under ``dispatch_error:1`` (radix; the
+             donated words re-streamed), ``exchange_corrupt:1`` (sample)
+             and ``result_dup:1`` (radix; caught by the fingerprint
+             alone); every device site x {radix, sample} at int32 2^24,
+             the persistent cells (``dispatch_oom:inf`` with the ladder on
+             and off, ``result_dup:inf`` off), ``dispatch_error:3`` (the
+             ``lax`` engine rung, K5), ``result_dup:2`` (on CUDA ranks
+             ``SortIntegrityError``: a twice-failed verification ends on
+             its rung) and ``exchange_corrupt:1`` on int64 sample (K2 +
+             K3); the full-width cells three rounds each, beside a clean
+             twin a round; a K6 launch refused with
+             ``KernelLaunchError`` must leave ``sort()`` unretried and
+             undegraded, a real OOM in K6's wrapper must end in
+             ``SortRetryExhausted`` after its retries, undegraded, and a
+             failing K4 under ``radix_pallas`` must
+             degrade only the local engine (or raise with the ladder off);
+             the full descent at 2^26 with each rung's wall; the eight
+             store sites through ``external_sort`` of int32 2^20 (16 runs,
+             two passes at fan-in 4) and ``spill_corrupt:1`` under
+             ``radix_pallas`` (K8 in the recovery merges); the CLI's exits
+             3, 4 and 1 at ``SORT_RANKS=8``.  Each cell ends verified and
+             byte-equal to ``torch.sort`` on the card, or with the typed
+             error the CPU parity tests fix; every fault must fire.
+             Every clean phase (1-4) asserts that no Tracer it created
+             holds a fault or ladder counter (``LADDER_COUNTERS``).
              Every output equals its oracle (np.sort, or torch.sort on the
              card for the large rows and every mesh row; the CLI's probe
              equals the (n/2)-th element of np.sort); the ``local_engine``
@@ -155,7 +182,8 @@ Phases, each failing loudly (any exception exits non-zero):
              the C entry; the round trip of merge_order_host,
              the plain version, and the host np.lexsort of the same
              planes);
-             the wall of each external leg; phase 3i's notes (record sort
+             the wall of each external leg; phase 3k's walls (each fault
+             beside the clean wall, the descent's rungs); phase 3i's notes (record sort
              Mkeys/s, ingest stage seconds and overlap, donation memory),
              its wall, phase 3j's notes and wall, and the smoke's total
              wall.
@@ -224,6 +252,342 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def env(**values: str):
+    """Set environment knobs for a block, restoring them after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+#: Counters a clean run never sets: a fault fired, a dispatch retried, a
+#: verification failed or the ladder descended.  Every clean phase holds
+#: every tracer it created to this, so a kernel that produced wrong bytes
+#: can never be absorbed by the ladder unseen.
+LADDER_COUNTERS = ("faults_injected", "sort_retries", "verify_failures",
+                   "exchange_engine_degraded", "local_engine_degraded", "degraded_to")
+
+#: Phase 3k's sizes on the card: the full-width cells, the site grid, the
+#: full descent, the store sites (16 runs, two passes at fan-in 4), the K8
+#: store cell and the CLI file.
+FAULT_SIZES = {"full": 1 << 28, "grid": 1 << 24, "descent": 1 << 26,
+               "drill": 1 << 23, "store": 1 << 20, "store_budget": 1 << 20,
+               "k8": 98304, "k8_budget": 98304, "cli": 1 << 20}
+#: Rounds of the full-width cells: each fault wall beside its round's clean.
+FULL_ROUNDS = 3
+
+
+def fault_phase(dev, mesh, rng, sizes: dict, log) -> tuple[dict, list[str]]:
+    """Phase 3k: the fault grid on the card.  Every cell ends verified and
+    byte-equal to a ``torch.sort`` oracle, or with the typed error the CPU
+    parity tests fix for its spec; a silently wrong answer, or a fault that
+    never fired, fails the phase.  Returns the kernel launches of each
+    cell and the timing notes."""
+    import numpy as np
+    import torch
+
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch import cli, faults
+    from mpitest_tpu_torch.models import ingest
+    from mpitest_tpu_torch.models import supervisor as supervision
+    from mpitest_tpu_torch.ops import _build, exchange, radix
+    from mpitest_tpu_torch.store import external
+    from mpitest_tpu_torch.utils import io as kio
+    from mpitest_tpu_torch.utils.trace import Tracer
+
+    cells: dict[str, dict] = {}
+    notes: list[str] = []
+    typed = (mt.SortIntegrityError, mt.SortRetryExhausted, external.SpillCapacityError)
+
+    def keys32(n: int) -> np.ndarray:
+        return rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32)
+
+    def oracle(x: np.ndarray) -> bytes:
+        return torch.sort(torch.from_numpy(x).to(dev)).values.cpu().numpy().tobytes()
+
+    def cell(label: str, x, algo: str, spec: str, expect: str, want: bytes | None,
+             fallback: str = "1", sort=None, **counters) -> tuple[float, Tracer]:
+        base = dict(_build.LAUNCHES)
+        reg = faults.FaultRegistry(spec, seed=7) if spec else None
+        faults.install(reg)
+        tr = Tracer()
+        t = time.perf_counter()
+        try:
+            with env(SORT_FALLBACK=fallback):
+                got = (sort(tr) if sort is not None
+                       else mt.sort(x, algorithm=algo, mesh=mesh, tracer=tr))
+            outcome = "verified"
+        except typed as e:
+            got, outcome = None, type(e).__name__
+        finally:
+            faults.install(None)
+        wall = time.perf_counter() - t
+        if outcome != expect:
+            raise AssertionError(f"3k {label}: {outcome}, expected {expect}")
+        if outcome == "verified":
+            if got.tobytes() != want:
+                raise AssertionError(f"3k {label}: a silently wrong answer")
+            if tr.counters.get("verify_runs", 0) < 1:
+                raise AssertionError(f"3k {label}: result not verified")
+        if reg is not None and reg.injected == 0:
+            raise AssertionError(f"3k {label}: the fault never fired")
+        for name, v in counters.items():
+            val = tr.counters.get(name)
+            if not (v(val) if callable(v) else val == v):
+                raise AssertionError(f"3k {label}: counter {name}={val}")
+        cells[label] = {k: _build.LAUNCHES[k] - base[k] for k in base
+                        if _build.LAUNCHES[k] != base[k]}
+        shown = {k: tr.counters[k] for k in ("faults_injected", "faults_dropped",
+                                             "sort_retries", "verify_failures",
+                                             "exchange_retries", "exchange_engine_degraded",
+                                             "local_engine_degraded", "degraded_to")
+                 if k in tr.counters}
+        log(f"[faults] {label}: {outcome}, {shown}, launches {cells[label]}, "
+            f"wall {wall:.3f} s")
+        return wall, tr
+
+    with env(SORT_RETRY_BACKOFF="0"):
+        # ---- full width: the main path's size, each fault beside the clean
+        # wall; three rounds, each cell once a round, so every fault wall
+        # has a clean twin from its own round and the medians share a card
+        x = keys32(sizes["full"])
+        want = oracle(x)
+        full = (("dispatch_error:1", "radix", {"sort_retries": 1}),
+                ("exchange_corrupt:1", "sample", {"verify_failures": 1}),
+                ("result_dup:1", "radix", {"verify_failures": 1}))
+        walls: dict[str, list[float]] = {}
+        for _ in range(FULL_ROUNDS):
+            for algo in ("radix", "sample"):
+                walls.setdefault(f"clean {algo}", []).append(cell(
+                    f"clean {algo} int32 {x.size} P=8", x, algo, "", "verified",
+                    want)[0])
+            for spec, algo, check in full:
+                wall, tr = cell(f"{spec} {algo} int32 {x.size} P=8", x, algo, spec,
+                                "verified", want, **check)
+                walls.setdefault(spec, []).append(wall)
+                verdicts = [s.attrs for s in tr.spans.spans if s.name == "verify"]
+                if spec.startswith("result_dup") and not (
+                        verdicts[0]["sorted_ok"] and not verdicts[0]["fp_ok"]):
+                    raise AssertionError(f"3k {spec}: not caught by the fingerprint "
+                                         f"alone ({verdicts[0]})")
+                if spec.startswith("dispatch_error") and x.nbytes >= ingest.STREAM_MIN_BYTES:
+                    # host input streams; the failed dispatch dropped the
+                    # donated words, and the retry re-streamed them
+                    pipes = sum(1 for s in tr.spans.spans if s.name == "ingest.pipeline")
+                    if pipes != 2:
+                        raise AssertionError(f"3k {spec}: {pipes} ingest pipelines, "
+                                             "expected the rebuild's second")
+        for spec, algo, _ in full:
+            got, twin = walls[spec], walls[f"clean {algo}"]
+            deltas = [a - b for a, b in zip(got, twin)]
+            notes.append(
+                f"{spec} {algo} sort(np int32 {x.size}, P=8): walls "
+                f"{[round(w, 3) for w in got]} s, median {statistics.median(got):.3f} s, "
+                f"beside the clean {algo} walls {[round(w, 3) for w in twin]} s, "
+                f"median {statistics.median(twin):.3f} s; the round's delta median "
+                f"{statistics.median(deltas):+.3f} s, range {min(deltas):+.3f} to "
+                f"{max(deltas):+.3f} s (host clock)")
+        del x, want
+
+        # ---- the grid: every device site x {radix, sample}
+        x = keys32(sizes["grid"])
+        want = oracle(x)
+        for site in ("dispatch_error", "dispatch_oom", "dispatch_stall",
+                     "exchange_corrupt", "exchange_drop", "cap_squeeze",
+                     "ingest_poison", "result_swap", "result_dup"):
+            check = ({"sort_retries": 1} if site in ("dispatch_error", "dispatch_oom")
+                     else {"exchange_retries": lambda v: (v or 0) >= 1}
+                     if site == "cap_squeeze"
+                     else {} if site == "dispatch_stall"
+                     else {"verify_failures": 1})
+            for algo in ("radix", "sample"):
+                with env(SORT_INGEST="stream" if site == "ingest_poison" else "auto"):
+                    cell(f"{site} {algo} int32 {x.size}", x, algo, site, "verified",
+                         want, **check)
+        for spec, fallback, expect in (("dispatch_oom:inf", "1", "verified"),
+                                       ("dispatch_oom:inf", "0", "SortRetryExhausted"),
+                                       ("result_dup:inf", "0", "SortIntegrityError")):
+            for algo in ("radix", "sample"):
+                check = {"degraded_to": "host"} if expect == "verified" else {}
+                cell(f"{spec} fallback={fallback} {algo} int32 {x.size}", x, algo,
+                     spec, expect, want, fallback=fallback, **check)
+        # a dispatch that fails past its retries on the pallas engine: the
+        # ladder's engine rung re-runs radix on the lax engine (K5 packs)
+        cell(f"dispatch_error:3 radix int32 {x.size} (the lax engine rung)", x,
+             "radix", "dispatch_error:3", "verified", want, sort_retries=2,
+             exchange_engine_degraded=1, exchange_engine="lax")
+        # on CUDA ranks a result that fails its verification twice ends on
+        # its rung (CPU ranks keep the reference's descent)
+        strict = supervision.strict_ladder(dev.type)
+        cell(f"result_dup:2 radix int32 {x.size}", x, "radix", "result_dup:2",
+             "SortIntegrityError" if strict else "verified", want, verify_failures=2,
+             exchange_engine_degraded=None if strict else 1)
+        x64 = rng.integers(-(2**63), 2**63 - 1, sizes["grid"], dtype=np.int64)
+        cell(f"exchange_corrupt:1 sample int64 {x64.size}", x64, "sample",
+             "exchange_corrupt:1", "verified", oracle(x64), verify_failures=1,
+             local_engine="bitonic")
+        del x64
+
+        # ---- drills that must raise, and the local-engine rung
+        real_launch = _build.launch
+
+        def refused(lib, name, *a):
+            if name == "fused_pass_pack":
+                raise _build.KernelLaunchError(
+                    "CUDA kernel fused_pass_pack failed: injected refusal (code 1)")
+            return real_launch(lib, name, *a)
+
+        tr = Tracer()
+        real_k6 = exchange.fused_pass_pack
+        if dev.type == "cuda":
+            _build.launch = refused
+        else:   # the plain version launches nothing: refuse at the wrapper
+            exchange.fused_pass_pack = lambda *a, **k: refused(None, "fused_pass_pack")
+        try:
+            with env(SORT_FALLBACK="1"):
+                mt.sort(x, algorithm="radix", mesh=mesh, tracer=tr)
+        except _build.KernelLaunchError:
+            bad = [c for c in LADDER_COUNTERS if c in tr.counters]
+            if bad:
+                raise AssertionError(f"3k K6 refusal: retried or degraded ({bad})")
+            log("[faults] K6 launch refused under SORT_FALLBACK=1: KernelLaunchError "
+                "propagated out of sort(), no retry, no degrade, no host result")
+        else:
+            raise AssertionError("3k K6 refusal: sort() returned")
+        finally:
+            _build.launch = real_launch
+            exchange.fused_pass_pack = real_k6
+        # a real OOM in K6's wrapper: retried on the same kernels, then
+        # SortRetryExhausted on CUDA ranks, never the plain pack or the host
+        def oom(*a, **k):
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (drill)")
+
+        exchange.fused_pass_pack = oom
+        try:
+            cell(f"K6 out of memory radix fallback=1 int32 {x.size}", x, "radix", "",
+                 "SortRetryExhausted" if strict else "verified", want, sort_retries=2,
+                 exchange_engine_degraded=None if strict else 1)
+        finally:
+            exchange.fused_pass_pack = real_k6
+        del x, want
+        xd = keys32(sizes["drill"])
+        want = oracle(xd)
+        real_fused = radix.fused_radix_sort
+
+        def dead_fused(*a, **k):
+            raise faults.DeviceDispatchError("INTERNAL: injected fused local-sort fault")
+
+        radix.fused_radix_sort = dead_fused
+        try:
+            with env(SORT_LOCAL_ENGINE="radix_pallas", SORT_MAX_RETRIES="0"):
+                cell(f"K4 dispatch failure radix_pallas fallback=1 int32 {xd.size}", xd,
+                     "radix", "", "verified", want, local_engine_degraded=1,
+                     local_engine="lax", exchange_engine_degraded=None)
+                cell(f"K4 dispatch failure radix_pallas fallback=0 int32 {xd.size}", xd,
+                     "radix", "", "SortRetryExhausted", want, fallback="0")
+        finally:
+            radix.fused_radix_sort = real_fused
+        del xd, want
+
+        # ---- the full descent: the user's time to recover on a dead device
+        x = keys32(sizes["descent"])
+        want = oracle(x)
+        wall, tr = cell(f"dispatch_oom:inf fallback=1 radix int32 {x.size} (full descent)",
+                        x, "radix", "dispatch_oom:inf", "verified", want,
+                        degraded_to="host", exchange_engine_degraded=1)
+        rungs: dict[str, list[float]] = {}
+        for s in tr.spans.spans:
+            if s.name == "sort":
+                continue
+            span = rungs.setdefault(str(s.attrs.get("rung", "radix/pallas/auto")),
+                                    [s.t0, s.t0 + s.dt])
+            span[0], span[1] = min(span[0], s.t0), max(span[1], s.t0 + s.dt)
+        notes.append(f"full descent sort(np int32 {x.size}, P=8, dispatch_oom:inf): "
+                     f"wall {wall:.3f} s; per rung " + ", ".join(
+                         f"{k} {v[1] - v[0]:.3f} s" for k, v in rungs.items())
+                     + " (host clock, first to last span of the rung)")
+        del x, want
+
+        # ---- the store sites through external_sort
+        x = keys32(sizes["store"])
+        want = oracle(x)
+
+        def ext_sort(budget: int, **kw):
+            def run(tr: Tracer):
+                with tempfile.TemporaryDirectory() as sd:
+                    res = external.external_sort(x, budget=budget, spill_dir=sd,
+                                                 tracer=tr, device=dev, **kw)
+                    if os.listdir(sd):
+                        raise AssertionError(f"3k store: spill files left {os.listdir(sd)}")
+                cells_ext.update(runs=res.runs, passes=res.merge_passes,
+                                 recoveries=res.recoveries)
+                if (res.runs, res.merge_passes) != (16, 2):
+                    raise AssertionError(f"3k store: {res.runs} runs, "
+                                         f"{res.merge_passes} passes")
+                return res.keys
+            return run
+
+        cells_ext: dict = {}
+        with env(SORT_MERGE_FANIN="4", SORT_SPILL_COMPRESS="off",
+                 SORT_FAULT_ENOSPC_AT="5", SORT_FAULT_STALL_MS="50"):
+            for site, compress, expect, kw in (
+                    ("spill_corrupt", "off", "verified", {}),
+                    ("merge_drop", "off", "verified", {}),
+                    ("spill_torn_write", "off", "verified", {}),
+                    ("spill_enospc", "off", "SpillCapacityError", {}),
+                    ("spill_bitrot", "off", "verified", {}),
+                    ("spill_block_garbage", "on", "verified", {}),
+                    ("manifest_torn", "off", "verified", {"dataset": "faults3k"}),
+                    ("merge_stall", "off", "verified", {})):
+                cells_ext.clear()
+                with env(SORT_SPILL_COMPRESS=compress):
+                    cell(f"{site} external_sort int32 {x.size} (16 runs, 2 passes)",
+                         x, "radix", site, expect, want,
+                         sort=ext_sort(sizes["store_budget"], **kw))
+                if expect == "verified" and site not in ("merge_stall", "manifest_torn") \
+                        and cells_ext["recoveries"] < 1:
+                    raise AssertionError(f"3k {site}: no recovery ({cells_ext})")
+        del x, want
+        x = keys32(sizes["k8"])
+        want = oracle(x)
+        with env(SORT_MERGE_FANIN="4", SORT_SPILL_COMPRESS="off",
+                 SORT_LOCAL_ENGINE="radix_pallas"):
+            label = f"spill_corrupt:1 external_sort radix_pallas int32 {x.size}"
+            cell(label, x, "radix", "spill_corrupt:1", "verified", want,
+                 sort=ext_sort(sizes["k8_budget"]))
+            if cells_ext["recoveries"] != 1:
+                raise AssertionError(f"3k {label}: {cells_ext}")
+        del x, want
+
+        # ---- the CLI's exit codes on eight ranks
+        x = keys32(sizes["cli"])
+        with tempfile.TemporaryDirectory() as tmp:
+            f = os.path.join(tmp, "keys.txt")
+            kio.write_keys_text(f, x)
+            for spec, fallback, code in (("result_dup:inf", "0", 3),
+                                         ("dispatch_oom:inf", "0", 4),
+                                         ("garbage_site", "1", 1)):
+                out, err = io.StringIO(), io.StringIO()
+                with env(SORT_FAULTS=spec, SORT_FALLBACK=fallback, SORT_RANKS="8"), \
+                        contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                    rc = cli.main(["mpitest_tpu_torch.cli", f],
+                                  device=None if dev.type == "cuda" else dev)
+                lines = err.getvalue().splitlines()
+                if rc != code or len(lines) != 1 or not lines[0].startswith("[ERROR] "):
+                    raise AssertionError(f"3k CLI SORT_FAULTS={spec}: exit {rc}, "
+                                         f"stderr {err.getvalue()!r}")
+                log(f"[faults] CLI SORT_RANKS=8 SORT_FAULTS={spec} SORT_FALLBACK="
+                    f"{fallback}: exit {rc}, {lines[0][:100]}")
+    return cells, notes
+
+
 def main() -> int:
     import torch
 
@@ -248,6 +612,26 @@ def main() -> int:
     t_smoke = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
+
+    # every Tracer the run creates (sort() makes its own when the caller
+    # passes none), so each clean phase holds them to LADDER_COUNTERS
+    tracers: list = []
+    tracer_init = Tracer.__init__
+
+    def tracked_init(self, *a, **k) -> None:
+        tracer_init(self, *a, **k)
+        tracers.append(self)
+
+    Tracer.__init__ = tracked_init
+
+    def assert_clean(phase: str) -> None:
+        for tr in tracers:
+            bad = {c: tr.counters[c] for c in LADDER_COUNTERS if c in tr.counters}
+            if bad:
+                raise AssertionError(f"clean phase {phase}: a run set {bad}")
+        log(f"[clean] phase {phase}: {len(tracers)} tracers, none with a fault "
+            "or ladder counter")
+        tracers.clear()
 
     def sync() -> None:
         torch.cuda.synchronize()
@@ -293,6 +677,7 @@ def main() -> int:
         f"{'built' if compress.available() else 'not built: ' + str(compress.unavailable_reason())}"
         f" in {time.perf_counter() - t0:.2f} s")
     log(f"[card] {card}")
+    assert_clean("1")
 
     # ---------------------------------------------------- 2. kernels vs plain
     before = dict(bitonic.LAUNCHES)
@@ -514,6 +899,8 @@ def main() -> int:
         if count <= before[name]:
             raise AssertionError(f"kernel {name} never launched in phase 2")
 
+    assert_clean("2")
+
     # ----------------------------------------------------- 3. main paths
     K1, K2, K3, K4 = "bitonic_u32", "bitonic_pairs_u32", "fix_runs_pairs", "radix_pass"
     K4H = "radix_histogram"     # K4's one histogram launch a sort
@@ -562,19 +949,6 @@ def main() -> int:
                 raise AssertionError(f"kernel {name} was never launched on {label}")
         log(f"[main] launches over {label}: {counts}")
         return counts
-
-    @contextlib.contextmanager
-    def env(**values: str):
-        old = {k: os.environ.get(k) for k in values}
-        os.environ.update(values)
-        try:
-            yield
-        finally:
-            for k, v in old.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
 
     def local_engine(value: str):
         return env(SORT_LOCAL_ENGINE=value)
@@ -1113,6 +1487,7 @@ def main() -> int:
     k8_launches = run_path("external_sort() under radix_pallas", (K4, K4H, K8),
                            external_k8_path)
     run_path("the CLI's external leg", (K1, K6, K7), cli_external_path)
+    assert_clean("3")
     t_slice = time.perf_counter()
     no_kernel("the record sorts", run_path("the record sorts", (), records_path))
     run_path("the packed batch", (), packed_path)
@@ -1123,6 +1498,7 @@ def main() -> int:
     no_kernel("the external record leg",
               run_path("the external record leg", (), ext_record_path))
     slice_wall = time.perf_counter() - t_slice
+    assert_clean("3i")
     log(f"[main] phase 3i (records, packed batch, staged routes, external record "
         f"leg) wall {slice_wall:.3f} s")
     path_launches = {K1: main_launches[K1], K2: main_launches[K2],
@@ -1444,6 +1820,29 @@ def main() -> int:
                 flight_recorder.reset()
     tele_wall = time.perf_counter() - t_tele
     log(f"[main] phase 3j (telemetry) wall {tele_wall:.3f} s")
+    assert_clean("3j")
+
+    # ------------------------------------------- 3k. the fault grid on the card
+    t_fault = time.perf_counter()
+    fault_cells: dict[str, dict] = {}
+    fault_notes: list[str] = []
+
+    def fault_path() -> None:
+        got_cells, notes = fault_phase(dev, mesh, rng, FAULT_SIZES, log)
+        fault_cells.update(got_cells)
+        fault_notes.extend(notes)
+
+    run_path("the fault grid (phase 3k)", (K1, K2, K3, K4, K4H, K5, K6, K7, K8),
+             fault_path)
+    k8_cell = next(k for k in fault_cells if "radix_pallas" in k and "external" in k)
+    if fault_cells[k8_cell].get(K8, 0) == 0:
+        raise AssertionError(f"3k: K8 never launched in the store recovery ({k8_cell})")
+    for name in (K1, K2, K3, K4, K5, K6, K7, K8):
+        log(f"[faults] {name} launches by cell: "
+            f"{ {k: v[name] for k, v in fault_cells.items() if v.get(name)} }")
+    tracers.clear()    # the fault cells set the ladder counters on purpose
+    fault_wall = time.perf_counter() - t_fault
+    log(f"[main] phase 3k (faults) wall {fault_wall:.3f} s")
 
     # ---------------------------------------------------------- 4. timing
     entries = []
@@ -1748,6 +2147,10 @@ def main() -> int:
         f"{x.numel() / ms / 1e3:.1f} Mkeys/s | card {card}")
     del x
 
+    assert_clean("4")
+    for note in fault_notes:
+        log(f"[timing] faults: {note} | card {card}")
+    log(f"[timing] phase 3k wall {fault_wall:.3f} s | card {card}")
     for note in slice_notes:
         log(f"[timing] {note} | card {card}")
     for note in tele_notes:

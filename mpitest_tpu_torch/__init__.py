@@ -19,12 +19,11 @@ from mpitest_tpu_torch.models.supervisor import (
     SortRetryExhausted,
 )
 from mpitest_tpu_torch.parallel.mesh import make_mesh
-from mpitest_tpu_torch.utils.knobs import KnobError, NotPortedError
+from mpitest_tpu_torch.utils.knobs import KnobError
 
 __all__ = [
     "DistributedSortResult",
     "KnobError",
-    "NotPortedError",
     "SortFaultError",
     "SortIntegrityError",
     "SortRetryExhausted",

@@ -47,9 +47,15 @@ reference: ``SORT_METRICS=<path>`` appends one JSON sidecar line per run
 run as Chrome trace-event JSON; ``SORT_PROFILE=<logdir>`` wraps the sort
 in ``torch.profiler`` (CUDA activity on a card, a ``*.pt.trace.json``
 artifact; ``utils/trace.torch_profile``).  A typed error dumps the flight
-recorder's ring (``SORT_FLIGHT_RECORDER_SIZE``/``_DIR``).  What the port
-cannot take yet ends with one ``[ERROR]`` line and exit 1:
-``SORT_FAULTS`` and ``--explain``.
+recorder's ring (``SORT_FLIGHT_RECORDER_SIZE``/``_DIR``).
+
+Robustness, as in the reference: ``SORT_FAULTS=<spec>`` (with
+``SORT_FAULTS_SEED``, ``SORT_FAULT_STALL_MS``, ``SORT_FAULT_ENOSPC_AT``)
+injects faults for drills, and ``SORT_MAX_RETRIES``,
+``SORT_RETRY_BACKOFF`` and ``SORT_FALLBACK`` set the supervisor's retry
+budget and the degradation ladder; all seven are validated up front.
+What the port cannot take yet ends with one ``[ERROR]`` line and exit 1:
+``--explain``.
 """
 
 from __future__ import annotations
@@ -72,20 +78,19 @@ from mpitest_tpu_torch.parallel.mesh import Mesh, make_mesh
 from mpitest_tpu_torch.store import external
 from mpitest_tpu_torch.utils import io as kio
 from mpitest_tpu_torch.utils import knobs, native_encode
-from mpitest_tpu_torch.utils.knobs import NotPortedError
 from mpitest_tpu_torch.utils.metrics import Metrics
 from mpitest_tpu_torch.utils.trace import Tracer, torch_profile
 
 EXIT_INTEGRITY = 3
 EXIT_RETRIES = 4
 
-#: Knobs of reference subsystems the port does not carry yet.
-_UNPORTED_KNOBS = ("SORT_FAULTS",)
-
 #: Knobs read later in the run, validated up front so garbage fails here.
 _VALIDATED = ("SORT_INGEST", "SORT_INGEST_CHUNK", "SORT_INGEST_THREADS",
               "SORT_DONATE", "SORT_NATIVE_ENCODE",
-              "SORT_VERIFY", "SORT_LOCAL_ENGINE", "SORT_MEM_BUDGET",
+              "SORT_VERIFY", "SORT_MAX_RETRIES", "SORT_RETRY_BACKOFF",
+              "SORT_FALLBACK", "SORT_FAULTS", "SORT_FAULTS_SEED",
+              "SORT_FAULT_STALL_MS", "SORT_FAULT_ENOSPC_AT",
+              "SORT_LOCAL_ENGINE", "SORT_MEM_BUDGET",
               "SORT_SPILL_DIR", "SORT_MERGE_FANIN", "SORT_SPILL_COMPRESS",
               "SORT_SPILL_THROTTLE_MBPS", "SORT_EXCHANGE_ENGINE",
               "SORT_DEVICES", "SORT_NEGOTIATE", "SORT_RESTAGE",
@@ -100,13 +105,6 @@ def _error(msg: str) -> None:
 def _invalid_file(path: str) -> int:
     print(f"sort(): '{path}' is not a valid file for read.", file=sys.stderr)
     return 1
-
-
-def _refuse_unported() -> None:
-    for name in _UNPORTED_KNOBS:
-        if knobs.get(name):
-            raise NotPortedError(f"{name}={knobs.get(name)!r}: not ported yet; "
-                                 "unset it")
 
 
 def _dump_metrics(config: dict, n: int, seconds: float, tracer: Tracer) -> None:
@@ -177,7 +175,6 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
         oversample = knobs.get("SORT_OVERSAMPLE")
         for name in _VALIDATED:
             knobs.get(name)
-        _refuse_unported()
         tracer.counters["encode_engine"] = native_encode.engine()
         dev = api.resolve_device(None, device)
         mesh = _mesh(ranks, dev)

@@ -63,13 +63,25 @@ streams them as JSONL.  Host spans time the enqueue of CUDA work, and
 tracing adds no synchronisation (``utils/spans.py``).  A typed error
 leaving ``sort()`` dumps the flight recorder's ring first.
 
-Not ported here: the degradation ladder, fault hooks, plan records and
-the planner.  A failed verification raises :class:`SortIntegrityError`;
-a kernel that fails raises.
+Robustness (``models/supervisor.py``, ``faults.py``): every distributed
+dispatch runs under the supervisor's retry budget, and a result that
+fails verification, or a rung whose dispatch keeps failing, descends the
+reference's degradation ladder (``SORT_FALLBACK``): the ``radix_pallas``
+local engine to ``lax``, the ``pallas`` exchange engine to ``lax``, the
+other algorithm, then the host ``np.lexsort``; each rung gets one
+verification retry on re-staged input.  The ladder absorbs
+``DeviceDispatchError`` and ``torch.cuda.OutOfMemoryError`` only: a kernel
+that fails to build or launch, or any other CUDA error, propagates.
+``SORT_FAULTS`` (or an installed :class:`faults.FaultRegistry`) injects
+faults at the reference's sites.  The one-rank paths keep no ladder, as
+in the reference: a failed verification raises
+:class:`SortIntegrityError`.  Not ported here: plan records and the
+planner.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections.abc import Callable, Iterable
 from dataclasses import dataclass
@@ -78,6 +90,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from mpitest_tpu_torch import faults
 from mpitest_tpu_torch.models import radix_sort, sample_sort
 from mpitest_tpu_torch.models.ingest import (
     EGRESS_MIN_BYTES,
@@ -108,7 +121,7 @@ from mpitest_tpu_torch.ops.pack import CHUNK
 from mpitest_tpu_torch.parallel.mesh import Mesh
 from mpitest_tpu_torch.utils import flight_recorder
 from mpitest_tpu_torch.utils import io as kio
-from mpitest_tpu_torch.utils import knobs
+from mpitest_tpu_torch.utils import knobs, spans
 from mpitest_tpu_torch.utils.trace import Tracer
 
 __all__ = ["DistributedSortResult", "SortFaultError", "SortIntegrityError",
@@ -424,7 +437,10 @@ def ingest_to_mesh(x: Any, mesh: Mesh | None = None, tracer: Tracer | None = Non
     tracer = tracer or Tracer()
     _stream_trace(tracer)
     arr = np.asarray(x)
-    with tracer.spans.span("ingest", n=int(arr.size), dtype=str(arr.dtype)):
+    reg = faults.for_run()
+    supervision.wire_registry(reg, tracer)
+    with tracer.spans.span("ingest", n=int(arr.size), dtype=str(arr.dtype)), \
+            faults.active(reg):
         return stream_to_mesh(arr, mesh, tracer=tracer, chunk_elems=chunk_elems,
                               threads=threads)
 
@@ -459,8 +475,10 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
     width, default auto), ``cap_factor`` (initial exchange cap in fair
     shares) and ``oversample`` (splitter samples per shard, default
     2P-1).  ``tracer`` collects counters and spans.  Every result is
-    verified (``SORT_VERIFY``, default on); a failure raises
-    :class:`SortIntegrityError`.  ``return_result`` keeps the result on
+    verified (``SORT_VERIFY``, default on); on more than one rank a
+    failure descends the degradation ladder (``SORT_FALLBACK``), and a
+    result that never verifies raises :class:`SortIntegrityError`, a
+    dispatch that keeps failing :class:`SortRetryExhausted`.  ``return_result`` keeps the result on
     the card.  ``pack`` is ``"pallas"`` (K5, the default) or ``"xla"``
     (plain scatter), and ``exchange_engine`` defaults to the
     ``SORT_EXCHANGE_ENGINE`` knob.
@@ -511,13 +529,17 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
     else:
         size = getattr(x, "numel", None)
         n = int(size()) if callable(size) else int(np.asarray(x).size)
+    # the run's fault registry (SORT_FAULTS or an installed one), active
+    # for the whole run so the ingest and exchange hooks see it
+    reg = faults.for_run()
+    supervision.wire_registry(reg, tracer)
     if mesh is not None and mesh.size > 1:
         run_mesh, where = mesh, {"ranks": mesh.size}
 
         def run() -> Any:
             return _sort_mesh(x, algorithm, mesh, tracer, return_result,
                               digit_bits, cap_factor, oversample, pack,
-                              exchange_engine)
+                              exchange_engine, reg)
     else:
         dev = resolve_device(x, mesh.devices[0] if mesh is not None else device)
         run_mesh, where = Mesh((dev,)), {"device": str(dev)}
@@ -525,7 +547,8 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
         def run() -> Any:
             return _sort_impl(x, dev, tracer, return_result, exchange_engine)
     with tracer.spans.span("sort", algorithm=algorithm, n=n,
-                           dtype=_dtype_name(x), **where) as sp:
+                           dtype=_dtype_name(x), **where) as sp, \
+            faults.active(reg):
         try:
             out = run()
         except SortFaultError as e:
@@ -889,8 +912,10 @@ def _interleave(shards: list[Words], mesh: Mesh) -> list[Words]:
 def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                return_result: bool, digit_bits: int | None, cap_factor: float,
                oversample: int | None, pack: str | None,
-               exchange_engine: str | None) -> Any:
-    """The distributed branch of the reference's ``_sort_impl``."""
+               exchange_engine: str | None,
+               reg: faults.FaultRegistry | None = None) -> Any:
+    """The distributed branch of the reference's ``_sort_impl``, with its
+    supervisor and degradation ladder."""
     for dev in mesh.devices:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"mesh rank on {dev} needs CUDA and none is available")
@@ -914,8 +939,10 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         return out if not return_result else DistributedSortResult((), 0, dtype)
     n_ranks = mesh.size
     n = max(1, math.ceil(N / n_ranks))
-    eng = _resolve_exchange_engine(exchange_engine)
-    tracer.counters["exchange_engine"] = eng
+    # the engines are resolved once; the ladder may degrade them, and every
+    # dispatch reads the current rung's from ``state``
+    eng0 = _resolve_exchange_engine(exchange_engine)
+    tracer.counters["exchange_engine"] = eng0
     leng0 = _local_engine()
     dev_type = mesh.devices[0].type
     verify_on = supervision.verify_enabled()
@@ -963,13 +990,15 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
             rebuild_words = lambda: _shard_input(words_np, mesh, n, pad)  # noqa: E731
 
     pack_impl = _resolve_pack(pack)
-    _, align = _engine_pack(pack_impl, eng)
+    # caps align for the first rung's engine; a CHUNK-aligned cap stays
+    # valid (128-aligned too) when the ladder degrades to lax
+    _, align = _engine_pack(pack_impl, eng0)
     # drop the input words once a dispatch has read them, where that frees
     # card memory and the words can be rebuilt for a rerun
     donate = _donation_enabled(mesh.devices) and rebuild_words is not None
     if donate and staged is not None:
         staged.consumed = True
-    sup = SortSupervisor(tracer)
+    sup = SortSupervisor(tracer, reg)
     input_fp = None
     if verify_on:
         with tracer.phase("verify"):
@@ -989,7 +1018,8 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     negotiate = supervision.negotiate_knob() != "off"
     restage_on = supervision.restage_knob() != "off"
     restage_ratio = knobs.get("SORT_RESTAGE_RATIO")
-    state = {"words": words, "restaged": False, "plan": None}
+    state = {"words": words, "restaged": False, "plan": None,
+             "eng": eng0, "leng": leng0}
     del words
 
     def live_words() -> list[Words]:
@@ -1009,6 +1039,13 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
             dev_words = None
             if staged is not None:
                 staged.words = []
+
+    def force_restage() -> None:
+        """After a failed verification the staged words themselves are
+        suspect (an ingest fault corrupts them after the fingerprint
+        fold): re-stage from the source even without donation."""
+        if rebuild_words is not None:
+            state["words"] = None
 
     def do_restage() -> None:
         if state["restaged"]:
@@ -1048,7 +1085,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
             worst_cap=n, send_bytes=[int(v) for v in send],
             recv_bytes=[int(v) for v in recv], recv_ratio=round(recv_ratio, 4),
             peer_ratio=round(peer_ratio, 4), restaged=state["restaged"],
-            exchange_engine=eng)
+            exchange_engine=state["eng"])
         tracer.counters["negotiated_cap"] = negotiated
         tracer.counters["worst_cap"] = n
         tracer.counters["exchange_balance_ratio"] = round(recv_ratio, 4)
@@ -1082,8 +1119,10 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
 
     def run_radix(cap0: int) -> DistributedSortResult:
         db, passes = radix_plan()
+        eng = state["eng"]
         eff_pack, eff_align = _engine_pack(pack_impl, eng)
-        leng = _resolve_local_engine(leng0, codec.n_words, n)
+        tracer.counters["exchange_engine"] = eng
+        leng = _resolve_local_engine(state["leng"], codec.n_words, n)
         radix_leng = leng if leng == "radix_pallas" else "lax"
         tracer.counters["local_engine"] = radix_leng
         if negotiate and passes > 0:
@@ -1094,8 +1133,9 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
             balance(cnts, "radix", True, cap0)
 
         def attempt(c: int) -> tuple[object, int]:
+            sup.arm_exchange()
             with tracer.phase("sort"):
-                out, max_cnt = _traced_call(
+                out, max_cnt = sup.dispatch("radix_spmd", lambda: _traced_call(
                     tracer, "radix_spmd",
                     (codec.n_words, n, db, c, passes, eff_pack, eng, radix_leng,
                      n_ranks, dev_type),
@@ -1103,7 +1143,10 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                         live_words(), codec.n_words, db, n_ranks, c, passes,
                         pack=eff_pack, exchange_engine=eng,
                         local_engine=radix_leng),
-                    n=n, cap=c, passes=passes, digit_bits=db, ranks=n_ranks)
+                    n=n, cap=c, passes=passes, digit_bits=db, ranks=n_ranks),
+                    on_retry=mark_dead)
+                # the reference's dispatch consumes donated words: drop them
+                # (this also stands in for its exchange_loop on_overflow)
                 mark_dead()
                 max_cnt = int(max_cnt)
             tracer.count("exchange_bytes",
@@ -1124,7 +1167,9 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         return run_radix(skew_cap)
 
     def run_sample() -> DistributedSortResult:
+        eng = state["eng"]
         eff_pack, eff_align = _engine_pack(pack_impl, eng)
+        tracer.counters["exchange_engine"] = eng
         if words_np is not None:
             degenerate = _sample_skew_sniff(words_np, n_ranks)
         else:
@@ -1140,19 +1185,20 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                 return reroute(f"probe estimates cap {need} > O(n) bound {cap_limit}")
             cap_start = need
             balance(cnts, "sample", False, cap_start)
-        spmd_engine = _resolve_local_engine(leng0, codec.n_words, n)
+        spmd_engine = _resolve_local_engine(state["leng"], codec.n_words, n)
         tracer.counters["local_engine"] = spmd_engine
 
         def attempt(c: int) -> tuple[object, int]:
+            sup.arm_exchange()
             with tracer.phase("sort"):
-                out, counts, max_cnt = _traced_call(
+                out, counts, max_cnt = sup.dispatch("sample_spmd", lambda: _traced_call(
                     tracer, "sample_spmd",
                     (codec.n_words, n, c, oversample, eff_pack, spmd_engine, eng,
                      n_ranks, dev_type),
                     lambda: sample_sort.sample_sort_spmd(
                         live_words(), codec.n_words, n_ranks, c, oversample,
                         pack=eff_pack, engine=spmd_engine, exchange_engine=eng),
-                    n=n, cap=c, ranks=n_ranks)
+                    n=n, cap=c, ranks=n_ranks), on_retry=mark_dead)
                 mark_dead()
                 max_cnt = int(max_cnt)
             tracer.count("exchange_bytes",
@@ -1172,9 +1218,157 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
             (), N, dtype, counts=np.asarray([int(c) for c in counts]),
             shard_slots=n_ranks * cap, shards=tuple(out))
 
-    res = run_sample() if algorithm == "sample" else run_radix(base_cap)
-    if verify_on and not _check_result(tracer, res, input_fp):
-        raise SortIntegrityError("distributed sort result failed verification")
+    def run_host() -> tuple[np.ndarray, ...]:
+        """The last rung: ``np.lexsort`` of the encoded words on the host,
+        no device work at all, fingerprint-checked on the host."""
+        tracer.verbose("graceful degradation: host lexsort fallback")
+        if staged is not None:
+            if staged.source is None:
+                raise SortIntegrityError(
+                    "host fallback impossible: StagedIngest kept no source")
+            arr = np.asarray(staged.source).reshape(-1)
+        elif is_device:
+            arr = x.detach().cpu().numpy().reshape(-1)
+        else:
+            arr = np.asarray(x).reshape(-1)
+        with tracer.phase("sort"):
+            w = codec.encode(arr)
+            # np.lexsort: the last key is primary, so the words go lsw first
+            order = np.lexsort(tuple(reversed(w)))
+            sorted_w = tuple(wi[order] for wi in w)
+        if verify_on and input_fp is not None:
+            with tracer.phase("verify"):
+                out_fp = vfy.fingerprint_host(sorted_w)
+            tracer.count("verify_runs", 1)
+            if out_fp != input_fp:
+                raise SortIntegrityError(
+                    "host fallback result failed fingerprint verification "
+                    "(input changed between ingest and fallback?)")
+        return sorted_w
+
+    # ---- the degradation ladder: the radix_pallas local engine -> lax,
+    # the pallas exchange engine -> lax (same algorithm), then the other
+    # algorithm, then the host lexsort.  Each rung gets one verification
+    # retry on re-staged input; a rung whose dispatch keeps failing (or
+    # that fails outside its dispatch) moves down.  On CUDA ranks only a
+    # DeviceDispatchError moves it down (supervision.strict_ladder): a
+    # real OOM or a result that fails twice ends on its rung.  It ends in
+    # a verified result or a typed error, never a silent wrong answer.
+    strict = supervision.strict_ladder(dev_type)
+    descends = (faults.DeviceDispatchError,) if strict else supervision.TRANSIENT
+    fused_local = leng0 == "radix_pallas"
+    #: lower rungs' local engine: the fused engine degrades to lax with
+    #: the rest of the rung; the other values ride every rung unchanged
+    lower_leng = "lax" if fused_local else leng0
+    rungs: list[tuple[str, str, str]] = [(algorithm, eng0, leng0)]
+    if supervision.fallback_enabled():
+        if fused_local:
+            rungs.append((algorithm, eng0, "lax"))
+        if eng0 != "lax":
+            rungs.append((algorithm, "lax", lower_leng))
+        rungs.append(("sample" if algorithm == "radix" else "radix",
+                      "lax", lower_leng))
+        rungs.append(("host", "lax", "lax"))
+    # the reference stamps plan.decide("ladder", ...) at the first rung and
+    # at every descent below (plan provenance is not ported)
+
+    res: DistributedSortResult | None = None
+    host_words: tuple[np.ndarray, ...] | None = None
+    last_err: Exception | None = None
+    level = rungs[0][0]
+    for step, (level, rung_eng, rung_leng) in enumerate(rungs):
+        if rung_leng != state["leng"]:
+            tracer.verbose(f"degrading local-sort engine {state['leng']} -> {rung_leng}")
+            tracer.count("local_engine_degraded", 1)
+            state["leng"] = rung_leng
+        if rung_eng != state["eng"]:
+            tracer.verbose(f"degrading exchange engine {state['eng']} -> {rung_eng}")
+            tracer.count("exchange_engine_degraded", 1)
+            state["eng"] = rung_eng
+        if level != rungs[0][0]:
+            tracer.verbose(f"degrading to the {level} path")
+        if step:
+            # a descent leaves an artifact, and every span of a lower rung
+            # carries the rung it ran on
+            flight_recorder.dump_on_error(f"ladder_{level}_{rung_eng}_{rung_leng}")
+        ctx = (spans.trace_context(rung=f"{level}/{rung_eng}/{rung_leng}") if step
+               else contextlib.nullcontext())
+        done = failed = False
+        with ctx:
+            for _ in range(2 if verify_on else 1):
+                try:
+                    if level == "host":
+                        host_words = run_host()
+                        done = True
+                        break
+                    cand = run_sample() if level == "sample" else run_radix(base_cap)
+                    cand = faults.maybe_corrupt_result(reg, cand)
+                    ok = not verify_on or _check_result(tracer, cand, input_fp)
+                except SortRetryExhausted as e:
+                    if not isinstance(e.__cause__, descends):
+                        raise
+                    last_err, failed = e, True
+                    tracer.verbose(f"{level} path failed persistently: {e}")
+                    break
+                except supervision.TRANSIENT as e:
+                    # a failing device can also surface outside the
+                    # supervised dispatch (sniff, planner reduction,
+                    # verifier): degrade rather than leak it untyped
+                    last_err = SortRetryExhausted(
+                        f"{level} path failed outside the sort dispatch: {e}")
+                    last_err.__cause__ = e
+                    if not isinstance(e, descends):
+                        raise last_err from e
+                    failed = True
+                    tracer.count("sort_retries", 1)
+                    tracer.verbose(f"{level} path device failure: "
+                                   f"{type(e).__name__}; degrading")
+                    break
+                if ok:
+                    res = cand
+                    done = True
+                    break
+                tracer.count("verify_failures", 1)
+                force_restage()  # the input words themselves are suspect
+            if strict and not (done or failed):
+                raise SortIntegrityError(
+                    f"the {level}/{rung_eng}/{rung_leng} result failed its "
+                    "verification and its retry on CUDA ranks, where no rung "
+                    "stands in for the kernels (verify_failures="
+                    f"{int(tracer.counters.get('verify_failures', 0))})")
+        if done:
+            break
+    if res is None and host_words is None:
+        if last_err is not None:
+            raise last_err
+        raise SortIntegrityError(
+            "no sort path produced a verified result (verify_failures="
+            f"{int(tracer.counters.get('verify_failures', 0))})")
+
+    if host_words is not None:
+        tracer.counters["degraded_to"] = "host"
+        out_np = codec.decode(host_words)
+        if not return_result:
+            return out_np
+        # best-effort re-stage of the host-sorted words onto the mesh (pads
+        # are copies of the maximum key, as in the device layout); a card
+        # that fails here too gets a host-backed result
+        try:
+            pad = _host_pad_words(codec, out_np, dtype, n_ranks * n)
+            return DistributedSortResult(
+                (), N, dtype, shards=tuple(_shard_input(host_words, mesh, n, pad)))
+        except supervision.TRANSIENT as e:
+            if not isinstance(e, descends):
+                raise SortRetryExhausted(
+                    f"re-staging the host fallback result failed: {e}") from e
+            tracer.verbose("device unavailable for re-staging the host "
+                           "fallback result; returning host-backed words")
+            return DistributedSortResult(
+                tuple(torch.from_numpy(w.view(np.int32)) for w in host_words),
+                N, dtype)
+
+    if level != rungs[0][0]:
+        tracer.counters["degraded_to"] = level
     if return_result:
         return res
     with tracer.phase("decode"):

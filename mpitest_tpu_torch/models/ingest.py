@@ -53,6 +53,7 @@ from typing import TYPE_CHECKING, Any
 import numpy as np
 import torch
 
+from mpitest_tpu_torch import faults
 from mpitest_tpu_torch.models.supervisor import verify_enabled
 from mpitest_tpu_torch.models.verify import Fingerprint
 from mpitest_tpu_torch.ops.keys import codec_for, numpy_dtype
@@ -362,6 +363,9 @@ def stream_to_mesh(x: np.ndarray, mesh: Mesh, tracer: "Tracer | None" = None,
             chunk, codec, state.fold_fp, eng)
         dt = time.perf_counter() - t0
         state.apply_fold(los, his, m, chunk_fp, t0, dt)
+        # SORT_FAULTS=ingest_poison: corrupt AFTER the fingerprint fold, so
+        # the card receives bytes the fingerprint never saw
+        words = faults.maybe_poison_chunk(words, k)
         if spans is not None:
             spans.record("ingest.encode", t0, dt, chunk=k, n=int(chunk.size),
                          engine=eng, bytes=int(sum(w.nbytes for w in words)))

@@ -6,7 +6,8 @@ Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
 (listed in ``.gitignore``), named by a hash of the source and the flags,
 so an edited source rebuilds and an unchanged one loads at once.  A
 failed build raises :class:`KernelBuildError` carrying nvcc's stderr; a
-missing ``nvcc`` raises too.  Nothing here falls back to another
+missing ``nvcc`` raises too; a refused launch raises
+:class:`KernelLaunchError`.  Nothing here falls back to another
 implementation.
 
 Every wrapper launches through :func:`launch`, which counts each kernel
@@ -42,6 +43,11 @@ LAUNCHES: dict[str, int] = {}
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel entry refused its launch (its status code was not 0).  Never
+    retried or degraded: the sort's supervisor lets it propagate."""
 
 
 def _nvcc() -> str:
@@ -133,7 +139,7 @@ def launch(lib: ctypes.CDLL, name: str, device: torch.device, *args: int) -> Non
             rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
-        raise RuntimeError(f"CUDA kernel {name} failed: {msg} (code {rc})")
+        raise KernelLaunchError(f"CUDA kernel {name} failed: {msg} (code {rc})")
     LAUNCHES[name] += 1
 
 

@@ -26,6 +26,7 @@ from typing import Any
 
 import torch
 
+from mpitest_tpu_torch import faults
 from mpitest_tpu_torch.ops import exchange as xeng
 from mpitest_tpu_torch.ops import kernels, pack as kpack
 from mpitest_tpu_torch.parallel.mesh import AXIS
@@ -212,6 +213,10 @@ def ragged_all_to_all(
                 raise ValueError(f"unknown pack {pack!r}; use 'xla' or 'pallas'")
             planes.append(xeng.remote_a2a_plain(sends) if n_ranks > 1 else sends)
     recv = [tuple(planes[k][r] for k in range(n_words)) for r in range(n_ranks)]
+    # fault injection: an exchange fault armed for this dispatch lands here,
+    # between the transport and the receivers' local sort or merge, on
+    # every rank (after pre_exchange read the clean counts); no-op otherwise
+    recv, recv_cnt = faults.apply_exchange_fault(recv, recv_cnt)
     max_send_cnt = torch.stack([c.max().to(send_cnt[0].device) for c in send_cnt]).max()
     if pre_exchange is not None:
         return recv, recv_cnt, max_send_cnt, pre_result

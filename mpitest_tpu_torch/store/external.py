@@ -52,6 +52,7 @@ the flight recorder's ring.
 
 from __future__ import annotations
 
+import contextlib
 import errno
 import os
 import tempfile
@@ -63,9 +64,11 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from mpitest_tpu_torch import faults
 from mpitest_tpu_torch.models.records import as_payload_matrix, words_to_payload
 from mpitest_tpu_torch.models.segmented import lex_sorted_host
-from mpitest_tpu_torch.models.supervisor import SortFaultError, SortIntegrityError
+from mpitest_tpu_torch.models.supervisor import (SortFaultError, SortIntegrityError,
+                                                 wire_registry)
 from mpitest_tpu_torch.ops.keys import codec_for
 from mpitest_tpu_torch.store import aio
 from mpitest_tpu_torch.store import manifest as mfstlib
@@ -300,10 +303,12 @@ def external_sort(
             yield (keys[off:off + chunk_elems],
                    pay[off:off + chunk_elems] if pay is not None else None)
 
-    return _external_core(chunks, n, dtype, width, algorithm=algorithm,
-                          device=device, mesh=mesh, tracer=tracer,
-                          budget=budget, spill_dir=spill_dir, fanin=fanin,
-                          sink=sink, out_name=out_name, dataset=dataset)
+    tracer = tracer or Tracer()
+    with _fault_run(tracer):
+        return _external_core(chunks, n, dtype, width, algorithm=algorithm,
+                              device=device, mesh=mesh, tracer=tracer,
+                              budget=budget, spill_dir=spill_dir, fanin=fanin,
+                              sink=sink, out_name=out_name, dataset=dataset)
 
 
 def external_sort_file(
@@ -337,11 +342,23 @@ def external_sort_file(
                                      chunk_elems=chunk_elems):
             yield c, None
 
-    return _external_core(chunks, None, dtype, 0, algorithm=algorithm,
-                          device=device, mesh=mesh, tracer=tracer,
-                          budget=budget, spill_dir=spill_dir, fanin=fanin,
-                          sink=sink, out_name=out_name,
-                          sink_factory=sink_factory, dataset=dataset)
+    tracer = tracer or Tracer()
+    with _fault_run(tracer):
+        return _external_core(chunks, None, dtype, 0, algorithm=algorithm,
+                              device=device, mesh=mesh, tracer=tracer,
+                              budget=budget, spill_dir=spill_dir, fanin=fanin,
+                              sink=sink, out_name=out_name,
+                              sink_factory=sink_factory, dataset=dataset)
+
+
+@contextlib.contextmanager
+def _fault_run(tracer: Tracer) -> Iterator[None]:
+    """One external sort's fault registry (``SORT_FAULTS``), wired to its
+    tracer and current for the store's hook sites while the sort runs."""
+    reg = faults.for_run()
+    wire_registry(reg, tracer)
+    with faults.active(reg):
+        yield
 
 
 def _external_core(
@@ -653,6 +670,9 @@ def _merge_all(
     """Fan-in-bounded merge of all runs + the output-side verification
     (fingerprint vs combined sidecars, boundary-inclusive sortedness).
     Raises typed integrity errors; never returns unverified bytes."""
+    # merge_stall drill: every partition run is committed and the merge
+    # has not consumed them yet (a kill here resumes at the merge)
+    faults.maybe_merge_stall()
     spans = _spans(tracer)
     level = list(run_infos)
     merge_passes = 0

@@ -31,6 +31,7 @@ import os
 import warnings
 from dataclasses import dataclass, field
 
+from mpitest_tpu_torch import faults
 from mpitest_tpu_torch.models.verify import Fingerprint
 from mpitest_tpu_torch.store import runs as runlib
 
@@ -213,7 +214,11 @@ class ManifestWriter:
     record (plus one ``run`` line per already-validated resumed run —
     a resumed sort's journal is self-contained, never a diff against
     the old one); :meth:`commit_run` appends + ``fsync``\\ s one line
-    per newly committed run."""
+    per newly committed run.
+
+    The ``manifest_torn`` fault site fires in :meth:`commit_run`: the
+    line's tail bytes never reach the journal (the crashed-mid-append
+    shape replay must skip loudly)."""
 
     def __init__(self, spill_dir: str, dataset: str, *, dtype: str,
                  n: int | None, payload_width: int, algorithm: str,
@@ -247,6 +252,10 @@ class ManifestWriter:
         os.replace(tmp, self.path)
         runlib.fsync_dir(self._dir)
         self._f = open(self.path, "ab")
+        #: a fired manifest_torn left the journal without its newline; the
+        #: next commit restores line framing first (the drill keeps exactly
+        #: one bad line; a real crash's torn line is the last)
+        self._torn = False
 
     def commit_run(self, chunk: int, info: "runlib.RunInfo") -> None:
         """Durably append one committed run's journal line.  MUST be
@@ -255,7 +264,14 @@ class ManifestWriter:
         named files are complete."""
         line = json.dumps(run_record(chunk, info),
                           separators=(",", ":")).encode("utf-8")
-        self._f.write(line + b"\n")
+        cut = faults.manifest_tear_cut(len(line))
+        prefix = b"\n" if self._torn else b""
+        if cut:
+            self._f.write(prefix + line[:len(line) - cut])
+            self._torn = True
+        else:
+            self._f.write(prefix + line + b"\n")
+            self._torn = False
         self._f.flush()
         os.fsync(self._f.fileno())
 

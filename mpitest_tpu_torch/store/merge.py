@@ -24,7 +24,10 @@ falls back to the host lexsort.
 Integrity: every chunk read back from disk is folded
 (:func:`store.runs.run_fingerprint`); at run exhaustion the fold must
 equal the run's sidecar, or the typed :class:`RunIntegrityError` names
-the run, which the external sort catches to re-spill that slice.
+the run, which the external sort catches to re-spill that slice.  The
+``merge_drop`` fault site consumes whole output chunks before the caller
+sees (or folds) them, the silent-truncation shape the external sort's
+count and fingerprint comparison must catch.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 
 import torch
 
+from mpitest_tpu_torch import faults
 from mpitest_tpu_torch.models.records import payload_to_words
 from mpitest_tpu_torch.models.supervisor import SortIntegrityError
 from mpitest_tpu_torch.ops import radix
@@ -232,6 +236,7 @@ def _merge_cursors(cursors: list[_Cursor],
                    ) -> Iterator[tuple[tuple, tuple]]:
     for c in cursors:
         c.refill()
+    out_idx = 0
     while True:
         for c in cursors:
             if not c.buffered and not c.file_done:
@@ -274,7 +279,9 @@ def _merge_cursors(cursors: list[_Cursor],
             order = _order_for(kws, rid, pos, device)
             kws = tuple(w[order] for w in kws)
             pws = tuple(w[order] for w in pws)
-            yield kws, pws
+            if not faults.should_drop_merge_chunk(out_idx, total):
+                yield kws, pws
+            out_idx += 1
             continue
         if boundary is None:
             continue  # drained everything visible; loop refills
@@ -289,7 +296,9 @@ def _merge_cursors(cursors: list[_Cursor],
                 if m:
                     emitted_any = True
                     kw, pw, _pos = c.pop(m)
-                    yield kw, pw
+                    if not faults.should_drop_merge_chunk(out_idx, m):
+                        yield kw, pw
+                    out_idx += 1
                 # keep draining while the run may still hold == keys:
                 # buffer exhausted with file data left, or the buffer
                 # now starts above the boundary

@@ -46,6 +46,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from mpitest_tpu_torch import faults
 from mpitest_tpu_torch.models.records import payload_to_words, words_to_payload
 from mpitest_tpu_torch.models.segmented import lex_sorted_host
 from mpitest_tpu_torch.models.verify import (Fingerprint, fingerprint_host,
@@ -282,6 +283,10 @@ class RunStreamWriter:
     never materializes its output run in host memory;
     :func:`write_run` is the one-shot convenience on top.
 
+    The ``spill_corrupt`` fault site fires on the FIRST appended chunk
+    (after its fold, before its write), a deterministic placement like
+    ``faults.maybe_poison_chunk``'s.
+
     ``durable=True`` (the manifest-journaled path) writes
     ``*.tmp`` names and commits at :meth:`close` via fsync(file) →
     ``os.replace`` → fsync(dir), per file (keys, payload, sidecar) —
@@ -309,7 +314,9 @@ class RunStreamWriter:
         self.n = 0
         self.disk_bytes = 0
         self._fp: Fingerprint | None = None
+        self._chunks = 0
         self._key_body = 0  # key bytes written after the 16-byte header
+        self._blocks: list[tuple[int, int]] = []  # (offset, len) per block
         self._pend_keys: list[np.ndarray] = []
         self._pend_pay: list[np.ndarray] = []
         self._pend_n = 0
@@ -351,7 +358,15 @@ class RunStreamWriter:
         cfp = run_fingerprint(kw, pw)
         self._fp = cfp if self._fp is None else self._fp.combine(cfp)
         key_bytes = keys_sorted.tobytes()
+        if self._chunks == 0:
+            key_bytes = faults.maybe_corrupt_spill(key_bytes)
+        self._chunks += 1
+        faults.maybe_spill_enospc(len(key_bytes))
         if self.compressed:
+            # from the (possibly drill-corrupted) disk bytes: the block
+            # codec compresses exactly what a raw run would persist, so
+            # every block checksum holds and only the sidecar fold can
+            # catch the spill_corrupt shape, as for raw runs
             self._pend_keys.append(np.frombuffer(key_bytes, self.dtype))
             if pay is not None:
                 self._pend_pay.append(pay)
@@ -379,10 +394,12 @@ class RunStreamWriter:
             wide = blockz.words_to_wide(self.codec.encode(keys))
             packed, first, width, chk = blockz.pack_block(wide)
             bh = _runz_block_header(take, width, first, len(packed), chk)
+            off = RUNZ_HEADER_LEN + self._key_body
             throttle_disk(len(bh) + len(packed))
             self._kf.write(bh)
             self._kf.write(packed)
             blen = RUNZ_BLOCK_HEADER_LEN + len(packed)
+            self._blocks.append((off, blen))
             self._key_body += blen
             self.disk_bytes += blen
             if self._pf is not None:
@@ -462,6 +479,36 @@ class RunStreamWriter:
                 os.replace(self.path + ".pay.tmp", self.path + ".pay")
             os.replace(sc_path + ".tmp", sc_path)
             fsync_dir(self._dir)
+        # disk-fault drills, applied to the PUBLISHED file: a torn tail,
+        # post-commit bit rot and (compressed runs only) a scrambled block
+        # header; each leaves the sidecar and manifest promising bytes the
+        # disk no longer holds
+        body = self._key_body
+        cut = faults.spill_tear_bytes(body)
+        if cut:
+            os.truncate(self.path,
+                        kio.BIN_HEADER_LEN + max(0, body - cut))
+        rot = faults.spill_bitrot_word()
+        if rot is not None and body > 0:
+            off = kio.BIN_HEADER_LEN + body // 2
+            with open(self.path, "r+b") as f:
+                f.seek(off)
+                b = f.read(1)
+                if b:
+                    f.seek(off)
+                    f.write(bytes([b[0] ^ ((rot & 0xFF) or 0x5A)]))
+        gw = faults.spill_block_garbage_word()
+        if gw is not None and self.compressed and self._blocks:
+            # scramble the MIDDLE block's header payload (first value,
+            # packed length, checksum: bytes 8..24); the reader must fail
+            # the framing or checksum check of that exact block
+            off, blen = self._blocks[len(self._blocks) // 2]
+            span = min(16, blen - 8)
+            with open(self.path, "r+b") as f:
+                f.seek(off + 8)
+                cur = f.read(span)
+                f.seek(off + 8)
+                f.write(bytes(b ^ 0xA5 for b in cur))
         return RunInfo(self.path, self.n, self.dtype,
                        self.payload_width, fp, self.disk_bytes,
                        compressed=self.compressed)

@@ -17,17 +17,12 @@ from typing import Any, Callable
 
 import numpy as np
 
-__all__ = ["Knob", "KnobError", "NotPortedError", "get", "register"]
+__all__ = ["Knob", "KnobError", "get", "register"]
 
 
 class KnobError(ValueError):
     """A knob's value failed validation; the message starts with
     ``NAME=<raw!r>``."""
-
-
-class NotPortedError(KnobError):
-    """A knob or argument named a reference feature this package does not
-    carry yet."""
 
 
 @dataclass(frozen=True)
@@ -337,6 +332,48 @@ register("SORT_FLIGHT_RECORDER_DIR",
          "Directory flight-recorder dump artifacts land in.",
          _passthrough)
 
-# A reference knob whose subsystem is not ported: the CLI refuses to run
-# with it set rather than silently ignore it.
-register("SORT_FAULTS", None, "Fault-injection plan (not ported).", _passthrough)
+# Robustness knobs (models/supervisor.py + faults.py), with the
+# reference's defaults and messages.
+register("SORT_MAX_RETRIES", 2,
+         "Dispatch retry budget for transient launch failures.",
+         _int("SORT_MAX_RETRIES", 0))
+register("SORT_RETRY_BACKOFF", 0.05,
+         "Base seconds of exponential dispatch-retry backoff.",
+         _float_at_least("SORT_RETRY_BACKOFF", 0.0))
+register("SORT_FALLBACK", True,
+         "Graceful-degradation ladder (engines, other algorithm, then host "
+         "sort).",
+         _flag("SORT_FALLBACK"))
+
+
+def _parse_faults(raw: str) -> str | None:
+    if not raw:
+        return None
+    from mpitest_tpu_torch import faults
+    faults.FaultRegistry(raw)  # raises ValueError with the site list
+    return raw
+
+
+register("SORT_FAULTS", None,
+         "Deterministic fault-injection plan (mpitest_tpu_torch/faults.py).",
+         _parse_faults)
+
+
+def _parse_faults_seed(raw: str) -> int:
+    try:
+        return int(raw)
+    except ValueError:
+        raise KnobError(f"SORT_FAULTS_SEED={raw!r}: use an integer") from None
+
+
+register("SORT_FAULTS_SEED", 0,
+         "Seed of the splitmix64 stream fault corruption values draw from.",
+         _parse_faults_seed)
+register("SORT_FAULT_STALL_MS", 250,
+         "Milliseconds the dispatch_stall and merge_stall fault sites block "
+         "the dispatching or merging thread.",
+         _int("SORT_FAULT_STALL_MS", 1))
+register("SORT_FAULT_ENOSPC_AT", 1,
+         "Which spill write (1-based, counted per registry) the armed "
+         "spill_enospc fault site fails with ENOSPC.",
+         _int("SORT_FAULT_ENOSPC_AT", 1))

@@ -11,8 +11,9 @@ takes the external leg in both.  The observability sinks
 (``SORT_METRICS``, ``SORT_TRACE``, ``SORT_TRACE_CHROME``, ``SORT_PROFILE``)
 run in both; the sidecar carries the reference's config keys and metric
 names (the reference with ``SORT_PLAN=off``: plan records are not
-ported).  What the port cannot take yet ends with one ``[ERROR]`` line
-and a nonzero exit.
+ported).  ``SORT_FAULTS`` drills end with the reference's exit codes (3, 4,
+and 1 for a garbage spec).  What the port cannot take yet ends with one
+``[ERROR]`` line and a nonzero exit.
 """
 
 from __future__ import annotations
@@ -195,6 +196,24 @@ def test_unported_inputs_end_with_one_error_line(env, argv_extra, int_file, caps
         # ported; it now runs and matches the reference line for line
         rc, _ = _check_same([path, "2"], capsys, monkeypatch, **env)
         assert rc == 0
+        return
+    if "SORT_FAULTS" in env:
+        # refused before the fault layer was ported; now the reference's
+        # exits, line for line: a recovered fault 0, a result that never
+        # verifies 3, a dispatch that keeps failing 4, a garbage spec 1
+        for extra, want in (({"SORT_RANKS": "8"}, 0),
+                            ({"SORT_FAULTS": "result_dup:inf", "SORT_FALLBACK": "0",
+                              "SORT_RANKS": "8"}, 3),
+                            ({"SORT_FAULTS": "dispatch_oom:inf", "SORT_FALLBACK": "0",
+                              "SORT_RANKS": "8"}, 4),
+                            ({"SORT_FAULTS": "garbage_site"}, 1)):
+            rc, got = _check_same([path], capsys, monkeypatch, SORT_RETRY_BACKOFF="0",
+                                  **{**env, **extra})
+            assert rc == want
+            if want:
+                lines = got.err.splitlines()
+                assert len(lines) == 1 and lines[0].startswith("[ERROR] ")
+                assert "Traceback" not in got.err
         return
     if "SORT_MEM_BUDGET" in env:
         # a file above the budget was refused before the external sort was

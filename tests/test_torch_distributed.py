@@ -296,6 +296,9 @@ def test_verification_failure_is_typed(monkeypatch):
         return [tuple(w.flip(0) for w in s) for s in out], mc
 
     monkeypatch.setattr(radix_sort, "radix_sort_spmd", corrupt)
+    # the ladder would end on the host rung (test_torch_supervisor.py);
+    # pinned to the requested path, a result that never verifies is typed
+    monkeypatch.setenv("SORT_FALLBACK", "0")
     with pytest.raises(mt.SortIntegrityError):
         mt.sort(UNIFORM, mesh=_cpu_mesh(3))
 

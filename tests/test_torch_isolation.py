@@ -33,7 +33,8 @@ def test_import_pulls_in_no_jax():
             "mpitest_tpu_torch.models.ingest, mpitest_tpu_torch.utils.spans, "
             "mpitest_tpu_torch.utils.trace, mpitest_tpu_torch.utils.metrics, "
             "mpitest_tpu_torch.utils.timeline, mpitest_tpu_torch.utils.span_schema, "
-            "mpitest_tpu_torch.utils.flight_recorder\n"
+            "mpitest_tpu_torch.utils.flight_recorder, mpitest_tpu_torch.faults, "
+            "mpitest_tpu_torch.models.supervisor\n"
             "mpitest_tpu_torch.external_sort\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mpitest_tpu' or "
@@ -58,6 +59,7 @@ def test_no_source_imports_jax_or_reference():
             "mpitest_tpu_torch/models/radix_sort.py",
             "mpitest_tpu_torch/models/sample_sort.py",
             "mpitest_tpu_torch/store/__init__.py", "mpitest_tpu_torch/store/external.py",
+            "mpitest_tpu_torch/faults.py",
             "mpitest_tpu_torch/store/merge.py", "mpitest_tpu_torch/store/runs.py",
             "mpitest_tpu_torch/store/compress.py", "mpitest_tpu_torch/store/aio.py",
             "mpitest_tpu_torch/store/manifest.py", "mpitest_tpu_torch/models/records.py",

@@ -99,6 +99,8 @@ def test_typed_error_leaves_an_artifact(flight, monkeypatch):
     ``report.py --check`` and holds the failed verification."""
     rec = flight()
     monkeypatch.setattr(vfy, "verify_result", lambda res, fp: (True, False))
+    # pinned to the requested path: the ladder's host rung would verify
+    monkeypatch.setenv("SORT_FALLBACK", "0")
     x = np.random.default_rng(3).integers(-50, 50, 5000).astype(np.int32)
     with pytest.raises(mt.SortIntegrityError):
         mt.sort(x, mesh=make_mesh(4, devices=["cpu"] * 4))
