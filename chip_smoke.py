@@ -105,9 +105,9 @@ Phases, each failing loudly (any exception exits non-zero):
              in the wall) and with ``SORT_TRACE_SAMPLE=0.1`` (one tracer
              over ten calls streams exactly one call's lines), median of
              5, with the streamed lines a call; each streamed file held
-             to the reference report's ``check_rows`` rules (repeated
-             here: required keys, dt >= 0, parents that resolve, every
-             name registered in the port's ``span_schema``), the
+             to the port report's ``check_rows`` (required keys, dt >= 0,
+             parents that resolve) with every name registered in the
+             port's ``span_schema``, the
              eight-rank radix file to one ``radix_pass`` and one
              ``ragged_all_to_all`` (``wire_bytes`` > 0) a planned pass,
              ``exchange_balance``, and a ``sort`` span with
@@ -151,6 +151,27 @@ Phases, each failing loudly (any exception exits non-zero):
              3, 4 and 1 at ``SORT_RANKS=8``.  Each cell ends verified and
              byte-equal to ``torch.sort`` on the card, or with the typed
              error the CPU parity tests fix; every fault must fire.
+             (l) the planner mix and the doctor (``planner_phase``, the
+             twins of the reference's ``bench/planner_selftest.py`` and
+             ``bench/doctor_selftest.py``): five host int32 2^28 inputs
+             from seed 2026 (sorted, near-sorted, duplicate-heavy,
+             range-narrow, uniform) on eight ranks under
+             ``SORT_PLANNER=off``, ``shadow`` and ``on``, each byte-equal
+             to ``torch.sort``; shadow byte-equal to off; the expected
+             policy a input under ``on`` (``verify_passthrough``,
+             ``merge_sample``, ``radix_narrow``, ``radix_compact``,
+             ``static``), one passthrough on the sorted input, the
+             predicted two passes run on the range-narrow one; a sorted
+             input with one hidden descent misses the passthrough on eight
+             ranks and on one (``planner_passthrough_miss`` = 1), the
+             one-rank passthrough beside it; ``radix_compact`` under
+             ``radix_pallas`` at 2^23 (K4); one planted trace a doctor
+             rule, a clean eight-rank sample sort raising no finding,
+             ``python -m mpitest_tpu_torch.report --explain``, ``--doctor``
+             and ``--check`` over the phase's trace, and the CLI's
+             ``--explain`` on a 2^24 SORTBIN1 file.  It prints each
+             input's host wall and ``plan_regret`` a mode and the mix's
+             off/on wall ratio (not asserted).
              Every clean phase (1-4) asserts that no Tracer it created
              holds a fault or ladder counter (``LADDER_COUNTERS``).
              Every output equals its oracle (np.sort, or torch.sort on the
@@ -175,7 +196,8 @@ Phases, each failing loudly (any exception exits non-zero):
              too, beside their plain versions, their bounds and (K7) one
              ``copy_`` of the transposed [P, P, cap] view; end-to-end
              sort() on eight ranks of device-resident int32 2^28 (radix
-             and sample) and int64 2^27 beside one rank, and of int32
+             and sample) and int64 2^27 beside one rank (each timed run
+             must emit one ``sort.plan`` span), and of int32
              2^26 under the lax exchange engine (K5); K8 at n = 4096 and 1024 with 3 and 4
              planes (one launch through the wrapper, which the kernels
              line keeps, and the mean of 50 launches back to back through
@@ -183,7 +205,8 @@ Phases, each failing loudly (any exception exits non-zero):
              the plain version, and the host np.lexsort of the same
              planes);
              the wall of each external leg; phase 3k's walls (each fault
-             beside the clean wall, the descent's rungs); phase 3i's notes (record sort
+             beside the clean wall, the descent's rungs); phase 3l's walls,
+             regrets and mix ratio; phase 3i's notes (record sort
              Mkeys/s, ingest stage seconds and overlap, donation memory),
              its wall, phase 3j's notes and wall, and the smoke's total
              wall.
@@ -586,6 +609,280 @@ def fault_phase(dev, mesh, rng, sizes: dict, log) -> tuple[dict, list[str]]:
                 log(f"[faults] CLI SORT_RANKS=8 SORT_FAULTS={spec} SORT_FALLBACK="
                     f"{fallback}: exit {rc}, {lines[0][:100]}")
     return cells, notes
+
+
+#: Phase 3l's sizes on the card: the planner mix at full width (eight
+#: ranks, host input), the K4 cell inside the fused engine's envelope (2^20
+#: a rank), the zipf table the duplicate-heavy input draws from, the
+#: doctor's clean run and traced planner run, and the CLI file.
+PLANNER_SIZES = {"mix": 1 << 28, "k4": 1 << 23, "zipf_table": 1 << 22,
+                 "clean": 1 << 20, "cli": 1 << 24}
+#: The planner's expected verdict on each mix input under SORT_PLANNER=on.
+PLANNER_EXPECT = {"sorted": "verify_passthrough", "near_sorted": "merge_sample",
+                  "dup_heavy": "radix_narrow", "range_narrow": "radix_compact",
+                  "uniform": "static"}
+
+
+def planner_phase(dev, mesh, seed: int, sizes: dict, log) -> list[str]:
+    """Phase 3l: the planner mix and the doctor on the card.
+
+    The mix: five host int32 inputs built from ``seed`` in the shapes of
+    the reference's ``bench/planner_selftest.py`` (sorted; near-sorted, 32
+    overlapping ascending runs; duplicate-heavy, draws from a
+    ``generate_zipf`` table; range-narrow, keys in [-2^16, 2^16); uniform,
+    ``generate_uniform``), each sorted on ``mesh`` under
+    ``SORT_PLANNER=off``, ``shadow`` and ``on``: every output byte-equal to
+    ``torch.sort`` on the card, shadow byte-equal to off with an
+    ``applied=False`` planner decision, the expected policy under ``on``,
+    one passthrough on the sorted input, and the range-narrow input running
+    the pass count the planner predicted.  A sorted input with one descent
+    hidden between the profile's strided samples must miss the passthrough
+    (``planner_passthrough_miss`` = 1) and end in the right bytes, on
+    ``mesh`` and on one rank (with the one-rank passthrough beside it).
+    The range-narrow input at ``sizes["k4"]`` runs under
+    ``SORT_LOCAL_ENGINE=radix_pallas``, where the compacted pass plan is
+    K4's.  The doctor: one planted trace a rule (exactly that rule), a
+    real eight-rank sort whose trace raises nothing,
+    ``python -m mpitest_tpu_torch.report`` with ``--explain``,
+    ``--doctor`` and ``--check`` over the phase's traces, and the CLI's
+    ``--explain`` on a SORTBIN1 file.  Returns the timing notes."""
+    import numpy as np
+    import torch
+
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch import cli, doctor, report
+    from mpitest_tpu_torch.utils import flight_recorder, timeline
+    from mpitest_tpu_torch.utils import io as kio
+    from mpitest_tpu_torch.utils.spans import SpanLog
+    from mpitest_tpu_torch.utils.trace import Tracer
+
+    notes: list[str] = []
+    # the margin policy learns from this phase's runs alone
+    flight_recorder.reset()
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def oracle(x: np.ndarray) -> bytes:
+        return torch.sort(torch.from_numpy(x).to(dev)).values.cpu().numpy().tobytes()
+
+    def build(name: str, n: int) -> tuple[np.ndarray, str]:
+        """(keys, requested algorithm) of one mix input."""
+        if name == "sorted":
+            return np.arange(-(n // 2), n - n // 2, dtype=np.int32), "radix"
+        if name == "near_sorted":
+            runs = 32
+            span = (1 << 31) // runs
+            off = torch.randint(0, 2 * span, (runs, n // runs), generator=g,
+                                device=dev, dtype=torch.int64)
+            base = torch.arange(runs, device=dev, dtype=torch.int64)[:, None] * span
+            return ((base + off.sort(dim=1).values).reshape(-1) - (1 << 30)).to(
+                torch.int32).cpu().numpy(), "radix"
+        if name == "dup_heavy":
+            table = torch.from_numpy(kio.generate_zipf(
+                sizes["zipf_table"], dtype=np.int32, seed=seed)).to(dev)
+            idx = torch.randint(0, table.numel(), (n,), generator=g, device=dev)
+            return table[idx].cpu().numpy(), "sample"
+        if name == "range_narrow":
+            return torch.randint(-(1 << 16), 1 << 16, (n,), generator=g, device=dev,
+                                 dtype=torch.int32).cpu().numpy(), "sample"
+        if name == "uniform":
+            return kio.generate_uniform(n, np.int32, seed=seed), "radix"
+        x = np.arange(n, dtype=np.int32)       # lying: one hidden descent
+        x[5], x[6] = x[6], x[5]
+        return x, "radix"
+
+    def run(x: np.ndarray, algo: str, m, mode: str, want: bytes,
+            **knobs_) -> tuple[float, Tracer]:
+        tr = Tracer()
+        with env(SORT_PLANNER=mode, **knobs_):
+            t = time.perf_counter()
+            got = mt.sort(x, algorithm=algo, mesh=m, tracer=tr)
+            wall = time.perf_counter() - t
+        if got.tobytes() != want:
+            raise AssertionError(f"3l {mode}: output differs from torch.sort")
+        if [s.name for s in tr.spans.spans].count("sort.plan") != 1:
+            raise AssertionError(f"3l {mode}: not one sort.plan span")
+        return wall, tr
+
+    walls: dict[str, dict[str, float]] = {}
+    n = sizes["mix"]
+    for name, expect in PLANNER_EXPECT.items():
+        x, algo = build(name, n)
+        want = oracle(x)
+        walls[name] = {}
+        for mode in ("off", "shadow", "on"):
+            wall, tr = run(x, algo, mesh, mode, want)
+            walls[name][mode] = wall
+            d = tr.plan.decisions.get("planner")
+            regret = tr.counters.get("plan_regret")
+            if mode == "off" and d is not None:
+                raise AssertionError(f"3l {name} off: a planner decision")
+            if mode == "shadow" and (d is None or d.predicted.get("applied") is not False):
+                raise AssertionError(f"3l {name} shadow: planner decision {d}")
+            if mode == "on":
+                if d is None or d.chosen != expect:
+                    raise AssertionError(f"3l {name} on: policy "
+                                         f"{d and d.chosen} != {expect}")
+                if name == "sorted" and tr.counters.get("planner_passthrough") != 1:
+                    raise AssertionError("3l sorted on: no passthrough")
+                if name == "range_narrow":
+                    p = tr.plan.decisions["passes"]
+                    if not (p.trigger == "planner"
+                            and p.predicted["passes"] == p.actual["passes"] == 2):
+                        raise AssertionError(f"3l range_narrow: passes {p}")
+            log(f"[planner] {name} ({algo}) {mode}: {wall:.3f} s host wall, "
+                f"plan_regret {regret}, policy "
+                f"{d.chosen if d is not None else '-'}")
+        del x
+    off = sum(w["off"] for w in walls.values())
+    on = sum(w["on"] for w in walls.values())
+    notes.append(f"3l planner mix int32 2^{n.bit_length() - 1} x5 on {mesh.size} "
+                 f"ranks, host walls off/shadow/on: "
+                 + "; ".join(f"{k} {v['off']:.3f}/{v['shadow']:.3f}/{v['on']:.3f} s"
+                             for k, v in walls.items())
+                 + f"; mix off {off:.3f} s, on {on:.3f} s, ratio off/on "
+                   f"{off / on:.3f}")
+
+    # the lying profile: the verify misses and the ladder sorts for real
+    x, algo = build("lying", n)
+    want = oracle(x)
+    for m, label in ((mesh, f"{mesh.size} ranks"), (None, "one rank")):
+        wall, tr = run(x, algo, m, "on", want)
+        if tr.counters.get("planner_passthrough_miss") != 1 or \
+                tr.plan.decisions["planner"].regret != 1.0:
+            raise AssertionError(f"3l lying ({label}): {tr.counters}")
+        notes.append(f"3l lying profile ({label}): miss, then the ladder's sort, "
+                     f"{wall:.3f} s host wall")
+    del x
+    x, algo = build("sorted", n)
+    wall, tr = run(x, algo, None, "on", oracle(x))
+    if tr.counters.get("planner_passthrough") != 1:
+        raise AssertionError("3l sorted (one rank): no passthrough")
+    notes.append(f"3l sorted, one rank, passthrough: {wall:.3f} s host wall")
+    del x
+
+    # radix_compact where K4 is the local engine (inside its envelope)
+    x, algo = build("range_narrow", sizes["k4"])
+    wall, tr = run(x, algo, mesh, "on", oracle(x), SORT_LOCAL_ENGINE="radix_pallas")
+    if (tr.plan.decisions["planner"].chosen != "radix_compact"
+            or tr.counters.get("local_engine") != "radix_pallas"):
+        raise AssertionError(f"3l K4 cell: {tr.counters}")
+    del x
+
+    # ---- the doctor: planted pathologies, a clean run, the report CLI
+    tmp = tempfile.mkdtemp(prefix="phase3l_")
+    for rule in doctor.DOCTOR_RULES:
+        log_ = SpanLog()
+        log_.stream_path = os.path.join(tmp, f"{rule}.jsonl")
+        plant_pathology(log_, rule)
+        rows = report.load_rows(log_.stream_path)
+        found = doctor.diagnose(doctor.evidence_from_rows(
+            rows, timeline=timeline.build_timeline(rows)))
+        if [f.rule for f in found] != [rule] or not found[0].evidence:
+            raise AssertionError(f"3l doctor {rule}: {[f.rule for f in found]}")
+    log(f"[planner] doctor: {len(doctor.DOCTOR_RULES)} planted pathologies, "
+        "each diagnosed as exactly its rule")
+    trace = os.path.join(tmp, "clean.jsonl")
+    xc = kio.generate_uniform(sizes["clean"], np.int32, seed=seed)
+    tr = Tracer()
+    tr.spans.stream_path = trace
+    if mt.sort(xc, algorithm="sample", mesh=mesh, tracer=tr).tobytes() != oracle(xc):
+        raise AssertionError("3l doctor clean run: wrong bytes")
+    rows = [s.to_dict() for s in tr.spans.spans]
+    found = doctor.diagnose(doctor.evidence_from_rows(
+        rows, timeline=timeline.build_timeline(rows)))
+    if found:
+        raise AssertionError(f"3l doctor clean run: {[f.rule for f in found]}")
+    x, algo = build("near_sorted", sizes["clean"])
+    tr = Tracer()
+    tr.spans.stream_path = trace
+    with env(SORT_PLANNER="on"):
+        mt.sort(x, algorithm=algo, mesh=mesh, tracer=tr)
+    procs = {flag: subprocess.Popen(
+        [sys.executable, "-m", "mpitest_tpu_torch.report", flag, trace],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for flag in ("--explain", "--doctor", "--check")}
+    for flag, p in procs.items():
+        out, err = p.communicate(timeout=120)
+        want_text = {"--explain": "merge_sample", "--doctor": "doctor:",
+                     "--check": "telemetry check OK"}[flag]
+        if p.returncode != 0 or want_text not in out:
+            raise AssertionError(f"3l report {flag}: rc {p.returncode}\n{out}\n{err}")
+    path = os.path.join(tmp, "cli.bin")
+    xb = kio.generate_uniform(sizes["cli"], np.int32, seed=seed)
+    kio.write_keys_binary(path, xb)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), env(SORT_ALGO="radix", SORT_RANKS="1"):
+        rc = cli.main(["sort_cli", path, "--explain"])
+    out = buf.getvalue()
+    med = np.sort(xb)[max(xb.size // 2 - 1, 0)]
+    if rc != 0 or f"The n/2-th sorted element: {int(med)}" not in out \
+            or f"plan algo=radix n={xb.size} dtype=int32 ranks=1" not in out:
+        raise AssertionError(f"3l CLI --explain: rc {rc}\n{out}")
+    for f in os.listdir(tmp):
+        os.remove(os.path.join(tmp, f))
+    os.rmdir(tmp)
+    log("[planner] doctor clean run: no finding; report --explain/--doctor/--check "
+        "and the CLI's --explain pass")
+    return notes
+
+
+def plant_pathology(log, rule: str, backend: str = "cuda") -> None:
+    """The reference's ``bench/doctor_selftest.py`` planted trace of one
+    doctor rule into ``log`` (a ``SpanLog`` of either package);
+    ``local_sort_lax`` is planted on ``backend``."""
+    if rule == "skew_imbalance":
+        log.record("sort", 0.0, 2.0)
+        log.record("exchange_balance", 0.5, 0.0, recv_bytes=[100.0, 110.0, 90.0, 420.0],
+                   send_bytes=[180.0] * 4, negotiated_cap=256, worst_cap=1024)
+    elif rule == "cap_thrash":
+        log.record("sort", 0.0, 1.0)
+        log.record("sort.plan", 1.0, 0.0, algo="sample", decisions={"cap": {
+            "chosen": 128, "predicted": {"cap": 128},
+            "actual": {"cap": 310, "regrows": 3}, "regret": 1.4}})
+    elif rule == "compile_storm":
+        for i in range(6):
+            log.record("serve.compile_cache", float(i), 0.0, hit=False,
+                       bucket=1 << (10 + i), dtype="int32", compile_s=0.2)
+        log.record("serve.compile_cache", 7.0, 0.0, hit=True, bucket=1024,
+                   dtype="int32")
+    elif rule == "window_misfit":
+        log.record("sort.plan", 0.0, 0.0, algo="sample", decisions={"batch": {
+            "chosen": 4096, "predicted": {"waste": 0.1}, "actual": {"waste": 0.7},
+            "regret": 0.6}})
+    elif rule == "spill_bound":
+        log.record("jit_execute", 0.0, 0.5)
+        log.record("external.run", 0.5, 1.2, run=0, n=1 << 20, bytes=1 << 22,
+                   dtype="int32", payload_width=0)
+        log.record("external.merge", 1.7, 2.3, runs=4, n=1 << 22, merge_pass=0,
+                   final=True)
+    elif rule == "verify_overhead_regression":
+        log.record("phase:sort", 0.0, 2.0)
+        log.record("phase:verify", 2.0, 1.0)
+    elif rule == "local_sort_lax":
+        log.record("phase:sort", 0.0, 2.0)
+        log.record("phase:decode", 2.0, 0.5)
+        log.record("sort.plan", 2.5, 0.0, algo="radix", decisions={"engine": {
+            "chosen": "xla", "actual": {"local_engine": "lax", "backend": backend,
+                                        "fallbacks": 0}}})
+    elif rule == "spill_churn":
+        log.record("external.recover", 0.0, 0.0, reason="fingerprint", bad_runs=1,
+                   attempt=1)
+        log.record("external.resume", 1.0, 0.0, dataset="ds1", committed=4, valid=4,
+                   skipped_lines=0)
+    elif rule == "breaker_flap":
+        log.record("serve.watchdog", 0.0, 0.0, event="trip", age_s=130.0)
+        log.record("serve.watchdog", 1.0, 0.0, event="recovered")
+        log.record("serve.watchdog", 2.0, 0.0, event="trip", age_s=131.0)
+    elif rule == "deadline_burn":
+        for i in range(12):
+            log.record("serve.request", float(i), 0.01, status="ok", n=4096,
+                       dtype="int32")
+        for i in range(4):
+            log.record("serve.request", 12.0 + i, 0.01, status="deadline", n=4096,
+                       dtype="int32")
+            log.record("serve.deadline", 12.0 + i, 0.0, stage="queue")
+    else:
+        raise KeyError(rule)
 
 
 def main() -> int:
@@ -1507,6 +1804,7 @@ def main() -> int:
                      K7: mesh_launches[K7], K8: k8_launches[K8]}
 
     # -------------------------------------------- 3j. telemetry on the card
+    from mpitest_tpu_torch import report
     from mpitest_tpu_torch.utils import flight_recorder, span_schema
     from mpitest_tpu_torch.utils.trace import torch_profile
 
@@ -1518,43 +1816,19 @@ def main() -> int:
         log(f"[telemetry] {note} | card {card}")
 
     def check_trace(path: str) -> list[dict]:
-        """The reference report's check_rows rules, repeated here: every
-        line a JSON object, spans (``span.v1``) with name/id/t0/dt/attrs,
-        attrs an object, dt >= 0, parent links that resolve within the
-        file, every name registered in the port's span_schema; the only
-        other shape allowed is a metrics line (the flight dump's
-        header).  Returns the span rows."""
-        rows: list[dict] = []
-        with open(path) as f:
-            lines = f.read().splitlines()
-        for i, line in enumerate(lines, 1):
-            if not line.strip():
-                continue
-            obj = json.loads(line)
-            where = f"{path}:{i}"
-            if not isinstance(obj, dict):
-                raise AssertionError(f"{where}: top-level value is not an object")
-            if obj.get("v") == "span.v1":
-                for key in ("name", "id", "t0", "dt", "attrs"):
-                    if key not in obj:
-                        raise AssertionError(f"{where}: span missing {key!r}")
-                if not isinstance(obj["attrs"], dict):
-                    raise AssertionError(f"{where}: span attrs must be an object")
-                if obj["dt"] < 0:
-                    raise AssertionError(f"{where}: span dt < 0")
-                if not span_schema.is_registered(obj["name"]):
-                    raise AssertionError(f"{where}: unregistered span {obj['name']!r}")
-                rows.append(obj)
-            elif not ("metrics" in obj and "config" in obj):
-                raise AssertionError(f"{where}: unrecognized record shape")
-        ids = {r["id"] for r in rows}
-        for r in rows:
-            if r.get("parent") is not None and r["parent"] not in ids:
-                raise AssertionError(f"{path}: span id={r['id']} has dangling "
-                                     f"parent {r['parent']}")
-        if not rows:
-            raise AssertionError(f"{path}: no span rows")
-        return rows
+        """The port report's ``check_rows`` over the file (span rows with
+        name/id/t0/dt/attrs, attrs an object, dt >= 0, parents that
+        resolve; a metrics line, the flight dump's header, is allowed), and
+        every span name registered in the port's span_schema.  Returns the
+        span rows."""
+        rows = report.load_rows(path)
+        errors = report.check_rows(rows)
+        spans_ = [r for r in rows if r["kind"] == "span"]
+        errors += [f"{path}: unregistered span {r['name']!r}" for r in spans_
+                   if not span_schema.is_registered(r["name"])]
+        if errors or not spans_:
+            raise AssertionError(f"{path}: {errors[:5] or 'no span rows'}")
+        return spans_
 
     def profile_stats(logdir: str) -> tuple[float, float, set[str], dict[str, int]]:
         """From the ``*.pt.trace.json`` torch_profile wrote: the card's
@@ -1844,6 +2118,17 @@ def main() -> int:
     fault_wall = time.perf_counter() - t_fault
     log(f"[main] phase 3k (faults) wall {fault_wall:.3f} s")
 
+    # ------------------------------ 3l. the planner mix and the doctor on the card
+    t_plan = time.perf_counter()
+    planner_notes: list[str] = []
+    planner_launches = run_path(
+        "the planner mix and the doctor (phase 3l)", (K1, K4, K4H, K6, K7),
+        lambda: planner_notes.extend(planner_phase(dev, mesh, 2026, PLANNER_SIZES, log)))
+    assert_clean("3l")
+    planner_wall = time.perf_counter() - t_plan
+    log(f"[main] phase 3l (planner, doctor) wall {planner_wall:.3f} s, launches "
+        f"{planner_launches}")
+
     # ---------------------------------------------------------- 4. timing
     entries = []
 
@@ -2131,11 +2416,38 @@ def main() -> int:
                       | u64(words(1 << 27, 274)))):
         for ranks, algo in ((1, "radix"), (RANKS, "radix"), (RANKS, "sample")):
             kw = {"mesh": mesh, "algorithm": algo} if ranks > 1 else {}
-            ms = timed(lambda: mt.sort(x, return_result=True, **kw), REPS)
+            runs: list = []
+
+            def traced() -> Tracer:
+                runs.append(Tracer())
+                return runs[-1]
+
+            ms = timed(lambda: mt.sort(x, return_result=True, tracer=traced(), **kw),
+                       REPS)
+            # SORT_PLAN at its default: every timed run emits its plan record
+            plans = [[s.name for s in tr.spans.spans].count("sort.plan") for tr in runs]
+            if plans != [1] * (REPS + 1):
+                raise AssertionError(f"sort(cuda {label}, P={ranks}, {algo}): "
+                                     f"sort.plan spans per run {plans}")
             log(f"[timing] end-to-end sort(cuda {label}, P={ranks}, {algo}, verify "
-                f"on, result on card): {ms:.3f} ms = {x.numel() / ms / 1e3:.1f} "
-                f"Mkeys/s | card {card}")
+                f"on, result on card, one sort.plan a run, plan_regret "
+                f"{runs[-1].counters.get('plan_regret')}): {ms:.3f} ms = "
+                f"{x.numel() / ms / 1e3:.1f} Mkeys/s | card {card}")
         del x
+    # what the plan record costs: the same calls with SORT_PLAN=off beside
+    # SORT_PLAN=on, in this call (on, off, off, on)
+    x = words(1 << 28, 287)
+    for ranks in (1, RANKS):
+        kw = {"mesh": mesh} if ranks > 1 else {}
+        ab = {"on": [], "off": []}
+        for plan_knob in ("on", "off", "off", "on"):
+            with env(SORT_PLAN=plan_knob):
+                ab[plan_knob].append(timed(lambda: mt.sort(x, return_result=True, **kw),
+                                           REPS))
+        log(f"[timing] SORT_PLAN on/off, sort(cuda int32 2^28, P={ranks}, radix): on "
+            f"{ab['on'][0]:.3f} / {ab['on'][1]:.3f} ms, off {ab['off'][0]:.3f} / "
+            f"{ab['off'][1]:.3f} ms | card {card}")
+    del x
     # K5's path: the lax exchange engine on eight ranks (one segment_pack
     # a rank a pass)
     x = words(1 << 26, 286)
@@ -2151,6 +2463,9 @@ def main() -> int:
     for note in fault_notes:
         log(f"[timing] faults: {note} | card {card}")
     log(f"[timing] phase 3k wall {fault_wall:.3f} s | card {card}")
+    for note in planner_notes:
+        log(f"[timing] planner: {note} | card {card}")
+    log(f"[timing] phase 3l wall {planner_wall:.3f} s | card {card}")
     for note in slice_notes:
         log(f"[timing] {note} | card {card}")
     for note in tele_notes:

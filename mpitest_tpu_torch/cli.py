@@ -1,7 +1,7 @@
 """The key-file CLI — the reference's own program contract (port of
 ``drivers/sort_cli.py``: the in-memory leg and the external leg).
 
-    python -m mpitest_tpu_torch.cli <file> [debug]
+    python -m mpitest_tpu_torch.cli <file> [debug] [--explain]
 
 * argv: a data file and an optional debug level (``atoi`` semantics: a
   non-numeric level is 0); another argument count prints ``Usage: <prog>
@@ -54,8 +54,10 @@ Robustness, as in the reference: ``SORT_FAULTS=<spec>`` (with
 injects faults for drills, and ``SORT_MAX_RETRIES``,
 ``SORT_RETRY_BACKOFF`` and ``SORT_FALLBACK`` set the supervisor's retry
 budget and the degradation ladder; all seven are validated up front.
-What the port cannot take yet ends with one ``[ERROR]`` line and exit 1:
-``--explain``.
+
+``--explain`` (anywhere in argv, stripped before the argument count):
+after the in-memory leg, print the run's decision tree, the
+``report.py --explain`` view of this run's ``sort.plan`` span.
 """
 
 from __future__ import annotations
@@ -95,7 +97,9 @@ _VALIDATED = ("SORT_INGEST", "SORT_INGEST_CHUNK", "SORT_INGEST_THREADS",
               "SORT_SPILL_THROTTLE_MBPS", "SORT_EXCHANGE_ENGINE",
               "SORT_DEVICES", "SORT_NEGOTIATE", "SORT_RESTAGE",
               "SORT_RESTAGE_RATIO", "SORT_TRACE_SAMPLE",
-              "SORT_FLIGHT_RECORDER_SIZE", "SORT_FLIGHT_RECORDER_DIR")
+              "SORT_FLIGHT_RECORDER_SIZE", "SORT_FLIGHT_RECORDER_DIR",
+              "SORT_PLAN", "SORT_PLANNER", "SORT_PLANNER_WINDOW",
+              "SORT_PLANNER_HYSTERESIS")
 
 
 def _error(msg: str) -> None:
@@ -152,9 +156,11 @@ def radix_pass_states(keys: np.ndarray, digit_bits: int | None
 def main(argv: list[str] | None = None, device: torch.device | str | None = None,
          tracer: Tracer | None = None) -> int:
     argv = sys.argv if argv is None else argv
-    if "--explain" in argv:
-        _error("--explain: plan provenance is not ported yet; run without it")
-        return 1
+    # --explain: print the run's decision tree (plan provenance) after the
+    # sort; a flag, so the reference's argv contract stays as it is
+    explain = "--explain" in argv
+    if explain:
+        argv = [a for a in argv if a != "--explain"]
     if len(argv) not in (2, 3):
         print(f"Usage: {argv[0]} <file: Data file to read>", file=sys.stderr)
         return 1
@@ -251,6 +257,13 @@ def main(argv: list[str] | None = None, device: torch.device | str | None = None
     else:
         print(f"The n/2-th sorted element: {int(med)}")
     print(f"Endtime()-Starttime() = {end - start:.5f} sec", file=sys.stderr)
+    if explain:
+        # report.py --explain's renderer over this run's in-process spans
+        from mpitest_tpu_torch.report import explain_view
+
+        view = explain_view([dict(s.to_dict(), kind="span")
+                             for s in tracer.spans.spans])
+        print(view if view is not None else "(no plan recorded — SORT_PLAN=off)")
     return 0
 
 

@@ -75,8 +75,23 @@ that fails to build or launch, or any other CUDA error, propagates.
 ``SORT_FAULTS`` (or an installed :class:`faults.FaultRegistry`) injects
 faults at the reference's sites.  The one-rank paths keep no ladder, as
 in the reference: a failed verification raises
-:class:`SortIntegrityError`.  Not ported here: plan records and the
-planner.
+:class:`SortIntegrityError`.
+
+Plan provenance (``models/plan.py``, ``SORT_PLAN``, default on): every
+run mints one :class:`~mpitest_tpu_torch.models.plan.SortPlan` on its
+tracer; the algo, cap, restage, engine, exchange engine, passes and
+ladder decisions are stamped where the reference stamps them (the
+supervisor stamps retries and regrows), and the run ends with the
+registered ``sort.plan`` point event and the ``plan_regret`` /
+``plan_cap_regret`` counters.  The engine decision's ``backend`` actual
+is the ranks' ``torch.device`` type.  The self-tuning planner
+(``models/planner.py``, ``SORT_PLANNER``, default off) scores the host
+input's strided profile: under ``on`` a sorted profile verifies the
+staged words as the result (``verify_passthrough``; a miss counts
+``planner_passthrough_miss`` and the ladder sorts for real), near-sorted
+input takes the sample sort, duplicate-heavy and range-narrow input the
+radix sort, and the sample probe's margin is learned from the flight
+ring; ``shadow`` records the choice without acting.
 """
 
 from __future__ import annotations
@@ -91,6 +106,8 @@ import numpy as np
 import torch
 
 from mpitest_tpu_torch import faults
+from mpitest_tpu_torch.models import plan as plan_mod
+from mpitest_tpu_torch.models import planner as planner_mod
 from mpitest_tpu_torch.models import radix_sort, sample_sort
 from mpitest_tpu_torch.models.ingest import (
     EGRESS_MIN_BYTES,
@@ -506,6 +523,9 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
     if payload is not None:
         from mpitest_tpu_torch.models import records
 
+        # the record path mints no plan: a reused tracer must not carry
+        # an earlier run's record
+        tracer.plan = None
         arr = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                else np.asarray(x))
         with tracer.spans.span("sort", algorithm="records", n=int(arr.size),
@@ -545,12 +565,22 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
         run_mesh, where = Mesh((dev,)), {"device": str(dev)}
 
         def run() -> Any:
-            return _sort_impl(x, dev, tracer, return_result, exchange_engine)
+            return _sort_impl(x, dev, tracer, return_result, exchange_engine,
+                              algorithm)
+    # one decision record per run, carried on the tracer so every
+    # chokepoint below (and the supervisor) stamps into the same object
+    plan = (plan_mod.SortPlan(algo=algorithm, dtype=_dtype_name(x))
+            if plan_mod.enabled() else None)
+    if plan is not None:
+        # a reused tracer's counters accumulate: stamp this run's delta
+        plan.fallbacks_base = int(tracer.counters.get("pair_residual_fallback", 0))
+    tracer.plan = plan
     with tracer.spans.span("sort", algorithm=algorithm, n=n,
                            dtype=_dtype_name(x), **where) as sp, \
             faults.active(reg):
         try:
             out = run()
+            _finish_plan(tracer, plan, run_mesh.devices[0].type)
         except SortFaultError as e:
             # a typed terminal error leaves an artifact: the ring's last
             # spans (this run's verdicts included), rate-limited per reason
@@ -583,11 +613,124 @@ def _check_result(tracer: Tracer, res: DistributedSortResult,
     return sorted_ok and fp_ok
 
 
+def _finish_plan(tracer: Tracer, plan: plan_mod.SortPlan | None,
+                 backend: str) -> None:
+    """Seal and emit the run's decision record: default the engine and
+    restage decisions from what the counters know, fold the regrets, stamp
+    ``plan_regret`` / ``plan_cap_regret`` into the counters and emit the
+    registered ``sort.plan`` point event.  ``backend`` is the ranks'
+    ``torch.device`` type, the engine decision's ``backend`` actual."""
+    if plan is None:
+        return
+    c = tracer.counters
+    engine = c.get("local_engine")
+    if engine is not None:
+        if "engine" in plan.decisions:
+            plan.actual("engine", local_engine=str(engine))
+        else:
+            plan.decide("engine", chosen=str(engine))
+        plan.actual("engine", backend=backend)
+    fallbacks = (int(c.get("pair_residual_fallback", 0))
+                 - int(getattr(plan, "fallbacks_base", 0)))
+    if fallbacks > 0:
+        plan.actual("engine", fallbacks=fallbacks)
+    if plan.ranks and plan.ranks > 1 and "restage" not in plan.decisions:
+        # never restaged: its regret is every regrow a re-stage would
+        # have prevented (stamped by the supervisor)
+        cap_d = plan.decisions.get("cap")
+        plan.decide("restage", chosen=False)
+        plan.actual("restage", regrows=(cap_d.actual.get("regrows", 0)
+                                        if cap_d is not None else 0))
+    total = plan.finalize()
+    tracer.counters["plan_regret"] = total
+    cap_d = plan.decisions.get("cap")
+    if cap_d is not None and cap_d.regret is not None:
+        tracer.counters["plan_cap_regret"] = cap_d.regret
+    tracer.spans.event("sort.plan", **plan.to_attrs())
+    tracer.plan = plan
+
+
+@dataclass
+class _PlannerVerdict:
+    """The run's plan record (None under ``SORT_PLAN=off``) and what the
+    planner decided: its mode, the scored choice (None when it did not
+    run), the sample probe's margin and the algorithm after any reroute."""
+
+    plan: plan_mod.SortPlan | None
+    mode: str
+    choice: planner_mod.PolicyChoice | None
+    neg_margin: float
+    algorithm: str
+
+    def passthrough(self, verify_on: bool) -> bool:
+        """Verify the staged input words as the result first."""
+        return (self.choice is not None and self.mode == "on" and verify_on
+                and self.choice.policy == "verify_passthrough")
+
+
+def _plan_run(tracer: Tracer, algorithm: str, N: int, n_ranks: int,
+              host_x: np.ndarray | None, verify_on: bool) -> _PlannerVerdict:
+    """The run's plan record (size, ranks, the ``algo`` decision and, for
+    host input, the strided profile) and the planner's verdict, as the
+    reference's ``_sort_impl`` takes them before staging.  ``off`` runs
+    nothing; ``shadow`` records the ``planner`` decision with
+    ``applied=False``; ``on`` may reroute the algorithm, pre-record a
+    compacted pass count and replace ``SAMPLE_NEG_MARGIN``."""
+    plan = tracer.plan if isinstance(tracer.plan, plan_mod.SortPlan) else None
+    verdict = _PlannerVerdict(plan, planner_mod.mode(), None, SAMPLE_NEG_MARGIN,
+                              algorithm)
+    if plan is None:
+        return verdict
+    plan.n = N
+    plan.ranks = n_ranks
+    plan.decide("algo", chosen=algorithm, requested=algorithm)
+    if host_x is not None:
+        # ~1k strided samples of the host keys: no extra key movement
+        plan.profile.update(plan_mod.profile_host_array(host_x))
+    if verdict.mode == "off":
+        return verdict
+    pchoice = verdict.choice = planner_mod.choose(plan.profile, algorithm,
+                                                  verify_on=verify_on)
+    # the margin steers only the sample negotiation: runs bound for radix
+    # and runs without negotiation skip the flight-ring scan
+    if ((pchoice.algo or algorithm) == "sample" and n_ranks > 1
+            and supervision.negotiate_knob() != "off"):
+        margin, margin_ev = planner_mod.learned_margin(SAMPLE_NEG_MARGIN)
+    else:
+        margin, margin_ev = SAMPLE_NEG_MARGIN, {}
+    # the recorded policy: a learned margin is the planner's move when
+    # the algo scorer chose nothing
+    name = pchoice.policy
+    if name == "static" and margin_ev.get("margin_learned"):
+        name = "cap_margin"
+    planner_mod.policy(name)  # a name outside the vocabulary raises
+    plan.decide("planner", chosen=name, requested="static",
+                trigger=pchoice.trigger, applied=(verdict.mode == "on"),
+                algo=pchoice.algo, margin=round(margin, 4),
+                **dict(pchoice.predicted, **margin_ev))
+    tracer.counters["planner"] = verdict.mode
+    tracer.counters["planner_policy"] = name
+    if verdict.mode == "on":
+        verdict.neg_margin = margin
+        if pchoice.algo is not None and pchoice.algo != algorithm:
+            plan.decide("algo", chosen=pchoice.algo, trigger="planner")
+            verdict.algorithm = pchoice.algo
+        if pchoice.policy == "radix_compact" and "passes" in pchoice.predicted:
+            # the promised pass count; the radix run keeps it as the
+            # prediction its "passes" regret is scored against
+            passes = int(pchoice.predicted["passes"])
+            plan.decide("passes", chosen=passes, trigger="planner",
+                        passes=passes)
+    return verdict
+
+
 def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
-               return_result: bool, exchange_engine: str | None = None) -> Any:
+               return_result: bool, exchange_engine: str | None = None,
+               algorithm: str = "radix") -> Any:
     """The one-rank branch of the reference's ``_sort_impl``."""
     if isinstance(x, StagedIngest):
-        return _sort_staged_local(x, device, tracer, return_result, exchange_engine)
+        return _sort_staged_local(x, device, tracer, return_result, exchange_engine,
+                                  algorithm)
     is_device = isinstance(x, torch.Tensor)
     if is_device:
         if x.device != device:
@@ -606,9 +749,15 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
     engine = _local_engine()
     # recorded on every run, exchange or not, as the reference does
     tracer.counters["exchange_engine"] = _resolve_exchange_engine(exchange_engine)
+    verdict = _plan_run(tracer, algorithm, N, 1, None if is_device else x,
+                        verify_on)
+    plan = verdict.plan
 
     def _finish_local(res: DistributedSortResult,
                       fp: vfy.Fingerprint | None) -> Any:
+        if plan is not None:
+            # one rank has no ladder: the rung is the local path itself
+            plan.decide("ladder", chosen="local")
         if verify_on and not _check_result(tracer, res, fp):
             raise SortIntegrityError(
                 "single-device sort result failed verification")
@@ -653,6 +802,23 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
                 fp_in = vfy.fingerprint_host(words_np)
         with tracer.phase("device_put"):
             words = tuple(to_device_words(w, device) for w in words_np)
+        # planner rung zero: the profile read fully sorted, so the input
+        # words are a sort candidate; one verify replaces the sort when it
+        # passes, and a miss costs that verify before the sort runs
+        if verdict.passthrough(verify_on) and fp_in is not None:
+            cand = DistributedSortResult(words, N, dtype)
+            if _check_result(tracer, cand, fp_in):
+                tracer.count("planner_passthrough", 1)
+                if plan is not None:
+                    plan.decide("ladder", chosen="passthrough")
+                if return_result:
+                    return cand
+                with tracer.phase("decode"):
+                    return cand.to_numpy(tracer=tracer)
+            del cand
+            tracer.count("planner_passthrough_miss", 1)
+            if plan is not None:
+                plan.actual("planner", misses=1)
         # fused-engine pass compaction: the host words are in hand, so the
         # per-word spread quantized to bit widths plans the passes
         diffs = (tuple((1 << int(d).bit_length()) - 1
@@ -666,7 +832,8 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
 
 
 def _sort_staged_local(staged: StagedIngest, device: torch.device, tracer: Tracer,
-                       return_result: bool, exchange_engine: str | None) -> Any:
+                       return_result: bool, exchange_engine: str | None,
+                       algorithm: str = "radix") -> Any:
     """The reference's staged one-rank route (``api.py:1452-1467``): one
     local sort of the staged words with the resolved engine (K1 for one
     word, the pair engine K2 + K3 with its residual fallback for two, K4
@@ -679,6 +846,8 @@ def _sort_staged_local(staged: StagedIngest, device: torch.device, tracer: Trace
     N = staged.n_valid
     verify_on = supervision.verify_enabled()
     tracer.counters["exchange_engine"] = _resolve_exchange_engine(exchange_engine)
+    # staged words carry no host profile: the planner chooses static
+    plan = _plan_run(tracer, algorithm, N, 1, None, verify_on).plan
     words = staged.words[0]
     resolved = _resolve_local_engine(_local_engine(), codec.n_words,
                                      int(words[0].numel()))
@@ -697,6 +866,8 @@ def _sort_staged_local(staged: StagedIngest, device: torch.device, tracer: Trace
         staged.words = []
     del words   # the last reference here: the verifier runs without them
     res = DistributedSortResult(out, N, dtype)
+    if plan is not None:
+        plan.decide("ladder", chosen="local")
     if verify_on and not _check_result(tracer, res, staged.fingerprint):
         raise SortIntegrityError("single-device sort result failed verification")
     if return_result:
@@ -946,6 +1117,11 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     leng0 = _local_engine()
     dev_type = mesh.devices[0].type
     verify_on = supervision.verify_enabled()
+    # the plan record and the planner's verdict, before any staging: the
+    # host profile comes from the keys before the streamed ingest takes them
+    verdict = _plan_run(tracer, algorithm, N, n_ranks,
+                        x if staged is None and not is_device else None, verify_on)
+    algorithm, plan = verdict.algorithm, verdict.plan
 
     words_np = None
     dev_words: Words | None = None
@@ -993,12 +1169,16 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     # caps align for the first rung's engine; a CHUNK-aligned cap stays
     # valid (128-aligned too) when the ladder degrades to lax
     _, align = _engine_pack(pack_impl, eng0)
+    if plan is not None:
+        # the pack that will run: the pallas engine owns its fused pack
+        plan.decide("engine", chosen=_engine_pack(pack_impl, eng0)[0])
+        plan.decide("exchange_engine", chosen=eng0)
     # drop the input words once a dispatch has read them, where that frees
     # card memory and the words can be rebuilt for a rerun
     donate = _donation_enabled(mesh.devices) and rebuild_words is not None
     if donate and staged is not None:
         staged.consumed = True
-    sup = SortSupervisor(tracer, reg)
+    sup = SortSupervisor(tracer, reg, plan=plan)
     input_fp = None
     if verify_on:
         with tracer.phase("verify"):
@@ -1109,12 +1289,21 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         """The count probe; one re-stage (and re-probe) when the per-peer
         need crosses the re-stage ratio."""
         cnts = probe(kind, db)
-        if (restage_on and not state["restaged"]
-                and float(cnts.max()) / fair >= restage_ratio):
+        if plan is not None:
+            # the probe's [P, P] counts are on the host already: the
+            # profile's entropy and skew ride them for free
+            plan.profile.update(plan_mod.profile_from_counts(cnts, fair))
+        ratio = float(cnts.max()) / fair
+        if restage_on and not state["restaged"] and ratio >= restage_ratio:
             tracer.verbose(f"{kind} probe: per-peer need {int(cnts.max())} >= "
                            f"{restage_ratio:g}x fair share {fair}; re-staging")
+            if plan is not None:
+                plan.decide("restage", chosen=True, trigger="probe",
+                            peer_ratio=round(ratio, 4))
             do_restage()
             cnts = probe(kind, db)
+            if plan is not None:
+                plan.actual("restage", peer_ratio=round(float(cnts.max()) / fair, 4))
         return cnts
 
     def run_radix(cap0: int) -> DistributedSortResult:
@@ -1125,12 +1314,25 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         leng = _resolve_local_engine(state["leng"], codec.n_words, n)
         radix_leng = leng if leng == "radix_pallas" else "lax"
         tracer.counters["local_engine"] = radix_leng
+        if plan is not None:
+            # a planner-predicted pass count (radix_compact) stays the
+            # prediction; the chosen side is the real plan
+            d_passes = plan.decisions.get("passes")
+            keep = d_passes is not None and "passes" in d_passes.predicted
+            plan.decide("passes", chosen=passes, digit_bits=db,
+                        **({} if keep else {"passes": passes}))
         if negotiate and passes > 0:
             cnts = negotiate_counts("radix", db)
             need = _round_cap(int(cnts.max()), eff_align)
             # pass 1's need is exact; later passes keep the cap_factor floor
             cap0 = need if passes == 1 else max(need, cap0)
+            if plan is not None:
+                plan.decide("cap", chosen=cap0, trigger="exact", cap=cap0,
+                            need=int(cnts.max()), fair=fair)
             balance(cnts, "radix", True, cap0)
+        elif plan is not None:
+            plan.decide("cap", chosen=cap0, trigger="off", cap=cap0, fair=fair)
+        last_need: list[int | None] = [None]
 
         def attempt(c: int) -> tuple[object, int]:
             sup.arm_exchange()
@@ -1149,6 +1351,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                 # (this also stands in for its exchange_loop on_overflow)
                 mark_dead()
                 max_cnt = int(max_cnt)
+            last_need[0] = max_cnt
             tracer.count("exchange_bytes",
                          passes * n_ranks * (n_ranks - 1) * c * 4 * codec.n_words)
             return out, max_cnt
@@ -1159,11 +1362,20 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         tracer.count("exchange_passes", passes)
         tracer.counters["exchange_cap"] = cap
         tracer.counters["digit_bits"] = db
+        if plan is not None:
+            plan.actual("cap", cap=cap, need=last_need[0],
+                        peer_recv_bytes=(last_need[0] or 0) * 4 * codec.n_words)
+            plan.actual("passes", passes=passes)
         return DistributedSortResult((), N, dtype, shards=tuple(out))
 
-    def reroute(why: str) -> DistributedSortResult:
+    def reroute(why: str, trigger: str) -> DistributedSortResult:
         tracer.verbose(f"sample: {why}; routing to radix (skew-immune)")
         tracer.count("sample_skew_fallback", 1)
+        if plan is not None:
+            plan.decide("algo", chosen="radix", trigger=trigger)
+            if trigger == "cap_exceeded":
+                # the late reroute paid a full exchange first
+                plan.actual("algo", late_reroute=True)
         return run_radix(skew_cap)
 
     def run_sample() -> DistributedSortResult:
@@ -1175,18 +1387,31 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         else:
             degenerate = _device_skew_sniff(live_words(), N, n_ranks)
         if degenerate:
-            return reroute("quantile splitters degenerate (heavy duplication)")
+            return reroute("quantile splitters degenerate (heavy duplication)",
+                           "skew_sniff")
         cap_limit = _round_cap(SAMPLE_CAP_LIMIT_FACTOR * fair, eff_align)
         cap_start = base_cap
         if negotiate:
             cnts = negotiate_counts("sample")
-            need = _round_cap(int(float(cnts.max()) * SAMPLE_NEG_MARGIN) + 1, eff_align)
+            # an estimate: margin on top (SAMPLE_NEG_MARGIN, or the
+            # planner's learned one under SORT_PLANNER=on)
+            need = _round_cap(int(float(cnts.max()) * verdict.neg_margin) + 1,
+                              eff_align)
             if need > cap_limit:
-                return reroute(f"probe estimates cap {need} > O(n) bound {cap_limit}")
+                return reroute(f"probe estimates cap {need} > O(n) bound {cap_limit}",
+                               "probe_estimate")
             cap_start = need
+            if plan is not None:
+                plan.decide("cap", chosen=cap_start, trigger="estimate",
+                            cap=cap_start, need=int(cnts.max()), fair=fair,
+                            margin=round(verdict.neg_margin, 4))
             balance(cnts, "sample", False, cap_start)
+        elif plan is not None:
+            plan.decide("cap", chosen=cap_start, trigger="off", cap=cap_start,
+                        fair=fair)
         spmd_engine = _resolve_local_engine(state["leng"], codec.n_words, n)
         tracer.counters["local_engine"] = spmd_engine
+        last_need: list[int | None] = [None]
 
         def attempt(c: int) -> tuple[object, int]:
             sup.arm_exchange()
@@ -1201,6 +1426,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                     n=n, cap=c, ranks=n_ranks), on_retry=mark_dead)
                 mark_dead()
                 max_cnt = int(max_cnt)
+            last_need[0] = max_cnt
             tracer.count("exchange_bytes",
                          n_ranks * (n_ranks - 1) * c * 4 * codec.n_words)
             return (out, counts), max_cnt
@@ -1211,9 +1437,13 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                 _round_cap, cap_limit=cap_limit,
                 re_stage=do_restage if restage_on else None)
         except ExchangeCapExceeded as e:
-            return reroute(f"exchange needs cap {e.need} > O(n) bound {e.limit}")
+            return reroute(f"exchange needs cap {e.need} > O(n) bound {e.limit}",
+                           "cap_exceeded")
         tracer.count("exchange_passes", 1)
         tracer.counters["exchange_cap"] = cap
+        if plan is not None:
+            plan.actual("cap", cap=cap, need=last_need[0],
+                        peer_recv_bytes=(last_need[0] or 0) * 4 * codec.n_words)
         return DistributedSortResult(
             (), N, dtype, counts=np.asarray([int(c) for c in counts]),
             shard_slots=n_ranks * cap, shards=tuple(out))
@@ -1269,24 +1499,58 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         rungs.append(("sample" if algorithm == "radix" else "radix",
                       "lax", lower_leng))
         rungs.append(("host", "lax", "lax"))
-    # the reference stamps plan.decide("ladder", ...) at the first rung and
-    # at every descent below (plan provenance is not ported)
+    if plan is not None:
+        plan.decide("ladder", chosen=rungs[0][0])
 
     res: DistributedSortResult | None = None
     host_words: tuple[np.ndarray, ...] | None = None
     last_err: Exception | None = None
+    #: why the previous rung ended, "dispatch" or "verify": an engine
+    #: degrade's trigger names the actual cause
+    last_fail = "dispatch"
     level = rungs[0][0]
-    for step, (level, rung_eng, rung_leng) in enumerate(rungs):
+
+    # planner rung zero: the profile read fully sorted, so the staged input
+    # shards (the radix layout: contiguous, pads at the tail) are a sort
+    # candidate; one verify replaces the whole sort when it passes.  A miss
+    # costs that verify, and the ladder below sorts the same live words.
+    if verdict.passthrough(verify_on) and input_fp is not None:
+        cand = DistributedSortResult((), N, dtype, shards=tuple(live_words()))
+        if _check_result(tracer, cand, input_fp):
+            tracer.count("planner_passthrough", 1)
+            if plan is not None:
+                plan.decide("ladder", chosen="passthrough")
+            res = cand
+        else:
+            tracer.count("planner_passthrough_miss", 1)
+            if plan is not None:
+                plan.actual("planner", misses=1)
+        del cand
+
+    for step, (level, rung_eng, rung_leng) in enumerate(() if res is not None
+                                                        else rungs):
+        trigger = "pallas_fault" if last_fail == "dispatch" else "verify_failure"
         if rung_leng != state["leng"]:
             tracer.verbose(f"degrading local-sort engine {state['leng']} -> {rung_leng}")
             tracer.count("local_engine_degraded", 1)
             state["leng"] = rung_leng
+            if plan is not None:
+                # the engine decision keeps its chosen pack; the degrade
+                # stamps its trigger, which the regret rule prices
+                eng_d = plan.decisions.get("engine")
+                plan.decide("engine", chosen=(eng_d.chosen if eng_d is not None
+                                              else rung_leng), trigger=trigger)
         if rung_eng != state["eng"]:
             tracer.verbose(f"degrading exchange engine {state['eng']} -> {rung_eng}")
             tracer.count("exchange_engine_degraded", 1)
             state["eng"] = rung_eng
+            if plan is not None:
+                plan.decide("exchange_engine", chosen=rung_eng, trigger=trigger)
         if level != rungs[0][0]:
             tracer.verbose(f"degrading to the {level} path")
+            if plan is not None:
+                plan.decide("ladder", chosen=level)
+                plan.bump("ladder", "rungs_descended")
         if step:
             # a descent leaves an artifact, and every span of a lower rung
             # carries the rung it ran on
@@ -1307,7 +1571,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                 except SortRetryExhausted as e:
                     if not isinstance(e.__cause__, descends):
                         raise
-                    last_err, failed = e, True
+                    last_err, failed, last_fail = e, True, "dispatch"
                     tracer.verbose(f"{level} path failed persistently: {e}")
                     break
                 except supervision.TRANSIENT as e:
@@ -1319,7 +1583,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                     last_err.__cause__ = e
                     if not isinstance(e, descends):
                         raise last_err from e
-                    failed = True
+                    failed, last_fail = True, "dispatch"
                     tracer.count("sort_retries", 1)
                     tracer.verbose(f"{level} path device failure: "
                                    f"{type(e).__name__}; degrading")
@@ -1329,6 +1593,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                     done = True
                     break
                 tracer.count("verify_failures", 1)
+                last_fail = "verify"
                 force_restage()  # the input words themselves are suspect
             if strict and not (done or failed):
                 raise SortIntegrityError(

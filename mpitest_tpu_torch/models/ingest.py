@@ -35,8 +35,8 @@ Egress (:func:`stream_result_to_numpy`) mirrors it: a fetch thread copies
 shard k+1 device -> pinned host memory on its own stream while shard k
 decodes, with ``egress.fetch`` and ``egress.decode`` spans.
 
-Not ported: the reference's ``maybe_poison_chunk`` fault hook (it comes
-with the fault registry).
+The ``ingest_poison`` fault site (``faults.maybe_poison_chunk``) corrupts
+an encoded chunk after its fingerprint fold, as in the reference.
 """
 
 from __future__ import annotations

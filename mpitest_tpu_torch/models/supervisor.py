@@ -14,7 +14,9 @@
   distributed sorts: run an attempt at the current cap, grow to the
   reported need on overflow, re-stage the shards once when the overflow
   persists, and raise :class:`ExchangeCapExceeded` when the need crosses
-  the caller's bound (sample sort then reroutes to radix).
+  the caller's bound (sample sort then reroutes to radix).  Retries and
+  regrows are stamped onto the run's plan record (``ladder`` and ``cap``
+  regret; a re-stage at the second regrow is the ``restage`` decision).
 * The degradation ladder (``SORT_FALLBACK``) runs in ``models/api.py``:
   local engine ``radix_pallas`` -> ``lax``, exchange engine ``pallas`` ->
   ``lax``, the other algorithm, then the host ``np.lexsort``; it ends in
@@ -53,6 +55,7 @@ from mpitest_tpu_torch import faults as flt
 from mpitest_tpu_torch.utils import knobs
 
 if TYPE_CHECKING:
+    from mpitest_tpu_torch.models.plan import SortPlan
     from mpitest_tpu_torch.utils.trace import Tracer
 
 
@@ -163,11 +166,14 @@ class SortSupervisor:
     the shared cap-regrow loop.  One instance per distributed sort."""
 
     def __init__(self, tracer: "Tracer",
-                 registry: flt.FaultRegistry | None = None) -> None:
+                 registry: flt.FaultRegistry | None = None,
+                 plan: "SortPlan | None" = None) -> None:
         self.tracer = tracer
         self.registry = registry
-        # the reference also takes the run's plan record here (plan
-        # provenance is not ported; every plan.* stamp below waits for it)
+        #: the run's decision record: the supervisor knows how wrong a
+        #: sizing decision was, so overflow regrows and dispatch retries
+        #: stamp their counts onto it here
+        self.plan = plan
         self.max_retries = max_retries()
         self.backoff = retry_backoff()
         wire_registry(registry, tracer)
@@ -231,7 +237,8 @@ class SortSupervisor:
                     f"{label} dispatch failed ({type(e).__name__}); "
                     f"retry {attempt + 1}/{self.max_retries} in {delay:.2f}s")
                 self.tracer.count("sort_retries", 1)
-                # the reference stamps plan.bump("ladder", "dispatch_retries") here
+                if self.plan is not None:
+                    self.plan.bump("ladder", "dispatch_retries")
                 self.tracer.spans.record(
                     "supervisor_retry", time.perf_counter(), 0.0,
                     label=label, attempt=attempt + 1, error=type(e).__name__)
@@ -266,12 +273,16 @@ class SortSupervisor:
             if cap_limit is not None and need > cap_limit:
                 raise ExchangeCapExceeded(max_cnt, cap_limit)
             regrows += 1
-            # the reference stamps plan.bump("cap", "regrows") here
+            if self.plan is not None:
+                # each regrow is a full discarded exchange dispatch
+                self.plan.bump("cap", "regrows")
             if re_stage is not None and regrows >= 2:
                 self.tracer.verbose(
                     f"{label} exchange overflowed {regrows} times "
                     "(persistent imbalance); re-staging shards")
-                # ... and plan.decide("restage", trigger="overflow") here
+                if self.plan is not None:
+                    self.plan.decide("restage", chosen=True,
+                                     trigger="overflow")
                 re_stage()
                 re_stage = None
             self.tracer.verbose(

@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from mpitest_tpu_torch import faults
+from mpitest_tpu_torch.models import plan as plan_mod
 from mpitest_tpu_torch.models.records import as_payload_matrix, words_to_payload
 from mpitest_tpu_torch.models.segmented import lex_sorted_host
 from mpitest_tpu_torch.models.supervisor import (SortFaultError, SortIntegrityError,
@@ -483,10 +484,12 @@ def _external_core(
                 f"partition saw {n} records, expected {n_hint}")
 
         if not run_infos:
-            return ExternalResult(0, dtype, width, 0, 0, 0, 0,
-                                  keys=np.empty(0, dtype),
-                                  payload=(np.zeros((0, width), np.uint8)
-                                           if width else None))
+            res = ExternalResult(0, dtype, width, 0, 0, 0, 0,
+                                 keys=np.empty(0, dtype),
+                                 payload=(np.zeros((0, width), np.uint8)
+                                          if width else None))
+            _finish_plan(tracer, res, budget, fanin)
+            return res
 
         disk0 = sum(r.disk_bytes for r in run_infos)
         expected_fp = run_infos[0].fingerprint
@@ -649,7 +652,30 @@ def _merge_with_recovery(
     tracer.counters["external_disk_bytes"] = out.disk_bytes
     tracer.counters["external_merge_passes"] = out.merge_passes
     tracer.counters["external_recoveries"] = recoveries
+    _finish_plan(tracer, out, budget, fanin)
     return out
+
+
+def _finish_plan(tracer: Tracer, res: ExternalResult, budget: int,
+                 fanin: int) -> None:
+    """Record the ``external`` plan decision: the spill tier, its sizing
+    and what it cost (runs, disk bytes, merge passes; each integrity
+    recovery is its regret), emitted as the run's ``sort.plan`` event."""
+    if not plan_mod.enabled():
+        return
+    plan = plan_mod.SortPlan(algo="external", n=res.n, dtype=res.dtype.name,
+                             ranks=1)
+    plan.decide("external", chosen="spill", trigger="budget", budget=budget,
+                fanin=fanin, payload_width=res.payload_width)
+    plan.actual("external", runs=res.runs, disk_bytes=res.disk_bytes,
+                merge_passes=res.merge_passes, recoveries=res.recoveries,
+                resumed=res.resumed_runs, spill_ratio=round(res.spill_ratio, 3),
+                disk_overlap=round(res.disk_overlap, 3))
+    if res.recoveries:
+        plan.bump("external", "recoveries", float(res.recoveries))
+    plan.finalize()
+    tracer.spans.event("sort.plan", **plan.to_attrs())
+    tracer.plan = plan
 
 
 def _merge_all(

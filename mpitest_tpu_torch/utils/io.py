@@ -9,8 +9,9 @@ on a ``SORT_INGEST_THREADS``-wide pool, through the engine that
 ``SORT_NATIVE_ENCODE`` selects (``utils/native_encode.py``).  The
 ingest knobs (``SORT_INGEST``, ``SORT_INGEST_CHUNK``,
 ``SORT_INGEST_THREADS``, ``SORT_DONATE``) are read here for the streamed
-ingest of ``models/ingest.py``.  Host code only: nothing here touches a
-device.
+ingest of ``models/ingest.py``.  :func:`generate` makes seeded uniform or
+Zipf keys, byte-equal to the reference's generators.  Host code only:
+nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -212,3 +213,43 @@ def read_keys_auto(path: str, dtype=np.int32, mmap: bool = False) -> np.ndarray:
     if not parts:
         return np.empty(0, dt)
     return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+def generate_uniform(n: int, dtype=np.int32, seed: int = 0) -> np.ndarray:
+    """Uniform random keys over the full range of ``dtype`` (the
+    reference's generator, byte-equal for the same seed).
+
+    Float dtypes get finite, sign-symmetric values spanning most of the
+    exponent range (normal significand x per-element power of ten); no
+    NaN or inf, so the ``np.sort`` median probe is well-defined."""
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dtype)
+    if dt.kind == "f":
+        max_exp = 30 if dt.itemsize == 4 else 250
+        expo = rng.integers(-max_exp, max_exp, size=n, endpoint=True)
+        return (rng.standard_normal(n) * 10.0 ** expo).astype(dt)
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max, size=n, dtype=dt, endpoint=True)
+
+
+def generate_zipf(n: int, a: float = 1.1, dtype=np.int64, seed: int = 0) -> np.ndarray:
+    """Zipf-skewed keys: heavy duplication of small values, the
+    splitter-imbalance stressor (the reference's generator, byte-equal for
+    the same seed)."""
+    rng = np.random.default_rng(seed)
+    dt = np.dtype(dtype)
+    vals = rng.zipf(a, size=n)
+    if dt.kind == "f":
+        # draws beyond the float's exact-integer range round; the rounded
+        # array is the input
+        return vals.astype(dt)
+    return np.clip(vals, None, int(np.iinfo(dt).max)).astype(dt)
+
+
+def generate(kind: str, n: int, dtype=np.int32, seed: int = 0) -> np.ndarray:
+    """``uniform`` or ``zipf`` keys of ``dtype`` from ``seed``."""
+    if kind == "uniform":
+        return generate_uniform(n, dtype, seed)
+    if kind == "zipf":
+        return generate_zipf(n, dtype=dtype, seed=seed)
+    raise ValueError(f"unknown generator kind: {kind!r}")

@@ -377,3 +377,38 @@ register("SORT_FAULT_ENOSPC_AT", 1,
          "Which spill write (1-based, counted per registry) the armed "
          "spill_enospc fault site fails with ENOSPC.",
          _int("SORT_FAULT_ENOSPC_AT", 1))
+
+# Plan provenance (models/plan.py) and the self-tuning planner
+# (models/planner.py), with the reference's defaults and messages.
+register("SORT_PLAN", "on",
+         "Decision provenance: mint SortPlan records, emit sort.plan spans "
+         "and the plan-regret counters (off = no plan record).",
+         _enum("SORT_PLAN", ("on", "off")))
+
+
+def _parse_hysteresis(raw: str) -> float:
+    try:
+        v = float(raw)
+    except ValueError:
+        v = 0.0
+    if not math.isfinite(v) or v <= 1.0:
+        raise KnobError(f"SORT_PLANNER_HYSTERESIS={raw!r}: use a finite "
+                        "number > 1")
+    return v
+
+
+register("SORT_PLANNER", "off",
+         "Self-tuning planner: off = hand-set defaults, shadow = compute and "
+         "log every policy choice without acting, on = act "
+         "(models/planner.py).",
+         _enum("SORT_PLANNER", ("off", "shadow", "on")))
+register("SORT_PLANNER_WINDOW", 256,
+         "Rolling look-back of the planner's learning policies: flight-ring "
+         "plan records (cap margin) / request arrivals (serve tuner).",
+         # 16 = planner.MIN_OBSERVATIONS: a smaller window would validate
+         # but behave as 16
+         _int("SORT_PLANNER_WINDOW", 16))
+register("SORT_PLANNER_HYSTERESIS", 1.5,
+         "Minimum up/down ratio a serve-tuner recommendation must differ by "
+         "before it may commit.",
+         _parse_hysteresis)

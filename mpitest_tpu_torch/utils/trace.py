@@ -32,8 +32,8 @@ class Tracer:
     #: every ``phase()`` opens a span here too; ``SORT_TRACE=<path>``
     #: streams it as JSONL (wired in models/api.py and store/external.py)
     spans: SpanLog = field(default_factory=SpanLog)
-    #: the last finished decision record; None until plan provenance
-    #: (the reference's ``models/plan.py``) is ported
+    #: the last finished decision record (``models/plan.SortPlan``), set
+    #: by ``sort()`` and ``external_sort()`` at completion
     plan: object | None = None
 
     def common(self, msg: str, min_level: int = 1) -> None:

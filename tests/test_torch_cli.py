@@ -10,10 +10,10 @@ timings, and the stderr shape — the same lines, with the
 takes the external leg in both.  The observability sinks
 (``SORT_METRICS``, ``SORT_TRACE``, ``SORT_TRACE_CHROME``, ``SORT_PROFILE``)
 run in both; the sidecar carries the reference's config keys and metric
-names (the reference with ``SORT_PLAN=off``: plan records are not
-ported).  ``SORT_FAULTS`` drills end with the reference's exit codes (3, 4,
-and 1 for a garbage spec).  What the port cannot take yet ends with one
-``[ERROR]`` line and a nonzero exit.
+names, the plan-regret counters included (``SORT_PLAN`` at its default in
+both).  ``SORT_FAULTS`` drills end with the reference's exit codes (3, 4,
+and 1 for a garbage spec).  ``--explain`` prints the reference's decision
+tree.
 """
 
 from __future__ import annotations
@@ -221,14 +221,11 @@ def test_unported_inputs_end_with_one_error_line(env, argv_extra, int_file, caps
         rc, _ = _check_same([path], capsys, monkeypatch, **env)
         assert rc == 0
         return
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    rc = cli.main(["sort_cli", path] + argv_extra, device="cpu")
-    got = capsys.readouterr()
-    assert rc != 0 and got.out == ""
-    lines = got.err.splitlines()
-    assert len(lines) == 1 and lines[0].startswith("[ERROR] ")
-    assert "not ported" in lines[0]
+    # --explain was refused before plan provenance was ported; it now
+    # prints the reference's decision tree, line for line
+    rc, got = _check_same([path] + argv_extra, capsys, monkeypatch, **env)
+    assert rc == 0 and "[ERROR]" not in got.err
+    assert "plan algo=sample n=1000 dtype=int32 ranks=1" in got.out
 
 
 @pytest.mark.parametrize("ranks", ["2", "8"])
@@ -301,7 +298,7 @@ def test_metrics_sidecar_matches_reference(leg, ranks, tmp_path, capsys, monkeyp
                                            dtype=np.int32)
     p = str(tmp_path / "k.bin")
     kio.write_keys_binary(p, x)
-    env = {"SORT_ALGO": "radix", "SORT_RANKS": ranks, "SORT_PLAN": "off"}
+    env = {"SORT_ALGO": "radix", "SORT_RANKS": ranks}
     if leg == "external":
         env.update(SORT_MEM_BUDGET="4096", SORT_MERGE_FANIN="2",
                    SORT_SPILL_DIR=str(tmp_path / "spill"), SORT_SPILL_COMPRESS="on")
@@ -354,7 +351,7 @@ def test_trace_and_chrome_sinks_of_the_cli(tmp_path, capsys, monkeypatch):
     names = {}
     for tag in ("port", "ref"):
         trace, chrome = tmp_path / f"{tag}.jsonl", tmp_path / f"{tag}.json"
-        for k, v in {"SORT_RANKS": "2", "SORT_ALGO": "radix", "SORT_PLAN": "off",
+        for k, v in {"SORT_RANKS": "2", "SORT_ALGO": "radix",
                      "SORT_TRACE": str(trace), "SORT_TRACE_CHROME": str(chrome)
                      }.items():
             monkeypatch.setenv(k, v)
@@ -372,6 +369,7 @@ def test_trace_and_chrome_sinks_of_the_cli(tmp_path, capsys, monkeypatch):
         assert events[0]["args"]["name"] == "mpitest_tpu"
         assert {"sort", "radix_pass"} <= {e["name"] for e in events}
     assert names["port"] == names["ref"]
+    assert "sort.plan" in names["port"]
 
 
 def test_external_leg_bad_file_matches_reference(tmp_path, capsys, monkeypatch):

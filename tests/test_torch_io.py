@@ -205,3 +205,39 @@ def test_auto_picks_native_once_built(native_built, monkeypatch):
     monkeypatch.setenv("SORT_NATIVE_ENCODE", "auto")
     assert native_encode.engine() == "native"
     assert native_encode.LIB_PATH.parts[-3:] == ("build", "native", "libencode.so")
+
+
+# ------------------------------------------------------------- generators
+
+_GEN_DTYPES = ("int8", "uint8", "int16", "uint16", "int32", "uint32", "int64",
+               "uint64", "float32", "float64")
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("dtype", _GEN_DTYPES)
+@pytest.mark.parametrize("kind", ["uniform", "zipf"])
+def test_generators_are_byte_equal_to_the_reference(kind, dtype, seed):
+    """``generate`` (and ``generate_uniform`` / ``generate_zipf``) give the
+    reference's bytes for the same seed, for every dtype (and its error
+    where it has one: the uint64 Zipf clip overflows in both)."""
+    def outcome(fn, *args):
+        try:
+            got = fn(*args)
+        except OverflowError as e:
+            return type(e).__name__
+        return got.dtype, got.tobytes()
+
+    pairs = [(kio.generate, ref_io.generate, (kind, 4099, np.dtype(dtype), seed))]
+    if kind == "zipf":
+        pairs.append((kio.generate_zipf, ref_io.generate_zipf, (999, 1.5, dtype, seed)))
+    else:
+        pairs.append((kio.generate_uniform, ref_io.generate_uniform, (999, dtype, seed)))
+    for mine, ref, args in pairs:
+        assert outcome(mine, *args) == outcome(ref, *args)
+    if not (kind == "zipf" and dtype == "uint64"):
+        assert isinstance(outcome(kio.generate, kind, 10, dtype, seed), tuple)
+
+
+def test_generate_rejects_an_unknown_kind():
+    with pytest.raises(ValueError, match="unknown generator kind: 'normal'"):
+        kio.generate("normal", 10)

@@ -34,7 +34,9 @@ def test_import_pulls_in_no_jax():
             "mpitest_tpu_torch.utils.trace, mpitest_tpu_torch.utils.metrics, "
             "mpitest_tpu_torch.utils.timeline, mpitest_tpu_torch.utils.span_schema, "
             "mpitest_tpu_torch.utils.flight_recorder, mpitest_tpu_torch.faults, "
-            "mpitest_tpu_torch.models.supervisor\n"
+            "mpitest_tpu_torch.models.supervisor, mpitest_tpu_torch.models.plan, "
+            "mpitest_tpu_torch.models.planner, mpitest_tpu_torch.doctor, "
+            "mpitest_tpu_torch.report\n"
             "mpitest_tpu_torch.external_sort\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'mpitest_tpu' or "
@@ -68,10 +70,32 @@ def test_no_source_imports_jax_or_reference():
             "mpitest_tpu_torch/utils/trace.py", "mpitest_tpu_torch/utils/metrics.py",
             "mpitest_tpu_torch/utils/timeline.py",
             "mpitest_tpu_torch/utils/span_schema.py",
-            "mpitest_tpu_torch/utils/flight_recorder.py"} <= names
+            "mpitest_tpu_torch/utils/flight_recorder.py",
+            "mpitest_tpu_torch/models/plan.py", "mpitest_tpu_torch/models/planner.py",
+            "mpitest_tpu_torch/doctor.py", "mpitest_tpu_torch/report.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
+
+
+@pytest.mark.parametrize("rel", ["mpitest_tpu_torch/models/plan.py",
+                                 "mpitest_tpu_torch/models/planner.py",
+                                 "mpitest_tpu_torch/doctor.py"])
+def test_vocabulary_modules_load_standalone_on_the_stdlib(rel):
+    """plan.py, planner.py and doctor.py load by file path, with no
+    package context, and import neither torch nor numpy (as in the
+    reference: their registries must resolve without the package)."""
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('m', {rel!r})\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "sys.modules['m'] = m\n"
+            "spec.loader.exec_module(m)\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('torch', 'numpy', 'jax', 'mpitest_tpu', 'mpitest_tpu_torch')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_pattern_catches_forbidden_imports():

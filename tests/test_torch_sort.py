@@ -198,8 +198,9 @@ def test_tracer_records_phases_and_nested_spans(monkeypatch, capsys):
     # two depends on whether this process ran the program before)
     jit = [s for s in inner if s.name in ("jit_compile_execute", "jit_execute")]
     assert len(jit) == 1 and jit[0].attrs["label"] == "local"
+    # and the run's decision record, one point event
     assert {s.name for s in inner} - {jit[0].name} == \
-        {f"phase:{p}" for p in tr.phases} | {"verify"}
+        {f"phase:{p}" for p in tr.phases} | {"verify", "sort.plan"}
     assert all(s.parent is not None for s in inner)
     assert [s.attrs["ok"] for s in inner if s.name == "verify"] == [True]
     assert "[VERBOSE] phase sort:" in capsys.readouterr().out

@@ -13,7 +13,7 @@ so its caps align to 1024 like the port's, at an n no other test
 compiles) gives the same pass indices, exchange byte accounting and
 collective totals.  ``SORT_TRACE`` files of library sorts pass the
 reference's ``report.check_rows``, with the reference's set of names
-(the reference runs with ``SORT_PLAN=off``: plan records are not ported).
+(``sort.plan`` included: both run with ``SORT_PLAN`` at its default).
 The port's own rule: collective events come on every run.
 """
 
@@ -285,7 +285,6 @@ def test_sort_trace_file_passes_reference_check(algo, n, tmp_path, monkeypatch):
         if tag == "port":
             mt.sort(x, algorithm=algo, mesh=_cpu_mesh())
         else:
-            monkeypatch.setenv("SORT_PLAN", "off")
             ref_api.sort(x, algorithm=algo, mesh=ref_mesh(8),
                          exchange_engine="pallas_interpret")
         rows = report.load_rows(str(path))
@@ -298,7 +297,7 @@ def test_sort_trace_file_passes_reference_check(algo, n, tmp_path, monkeypatch):
         assert names[tag] & _JIT
         names[tag] -= _JIT
     assert names["port"] == names["ref"]
-    assert {"sort", "ragged_all_to_all", "negotiate_probe",
+    assert {"sort", "sort.plan", "ragged_all_to_all", "negotiate_probe",
             "splitter_round" if algo == "sample" else "radix_pass"} <= names["port"]
 
 

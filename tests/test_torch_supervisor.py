@@ -366,6 +366,31 @@ def test_strict_ladder_ends_a_twice_failed_verification_on_its_rung(algo, monkey
     assert out == "verified" and tr.counters["verify_failures"] == 1
 
 
+@pytest.mark.parametrize("spec,raiser,descents", [
+    ("", _oom, None), ("result_dup:2", None, None),
+    ("dispatch_oom:inf", None, 2.0),
+], ids=["real-oom", "twice-failed-verify", "dispatch_oom:inf"])
+def test_strict_ladder_plan_counts_only_real_descents(spec, raiser, descents,
+                                                      monkeypatch):
+    """W6: on CUDA ranks (strict ladder, run here on CPU ranks) a real OOM
+    or a twice-failed verification ends on its rung, and the plan record
+    says so: the ladder stays on its first rung with no descent counted,
+    and the retries are its regret; an injected DeviceDispatchError still
+    descends, and each descent is counted."""
+    out, _, tr = _strict_cell(monkeypatch, spec, raiser, algorithm="radix")
+    ladder = tr.plan.to_attrs()["decisions"]["ladder"]
+    assert ladder.get("actual", {}).get("rungs_descended") == descents
+    if descents is None:
+        assert out != "verified" and ladder["chosen"] == "radix"
+        assert tr.plan.digest()["exchange_engine"] == "pallas"
+        retries = tr.counters.get("sort_retries", 0)
+        assert ladder.get("actual", {}).get("dispatch_retries", 0) == retries
+        assert tr.plan.digest()["regret"] >= float(retries)
+    else:
+        assert out == "verified" and ladder["chosen"] == "host"
+        assert tr.counters["plan_regret"] == tr.plan.digest()["regret"]
+
+
 @pytest.mark.parametrize("spec,raiser,counters", [
     ("", _dispatch, {"exchange_engine_degraded": 1, "sort_retries": 2}),
     ("dispatch_oom:inf", None, {"exchange_engine_degraded": 1, "degraded_to": "host"}),
@@ -394,16 +419,48 @@ def test_auto_engine_has_one_more_rung_on_the_cpu(monkeypatch):
     assert len(port[2]) == len(ref[2]) + 3 == 9
 
 
-def test_plan_stamps_are_not_ported(monkeypatch):
-    """The reference stamps the retries onto its plan record; the port
-    keeps the counters and spans and emits no ``sort.plan``."""
-    port, ref = _cell("dispatch_error", "radix", "lax", x=KEYS[:-5])
-    _assert_same(port, ref)
-    tr = Tracer()
-    faults.install(faults.FaultRegistry("dispatch_error"))
-    mt.sort(KEYS[:-5], mesh=_cpu_mesh(8), tracer=tr, exchange_engine="lax")
-    assert "sort.plan" not in {s.name for s in tr.spans.spans}
-    assert tr.counters["sort_retries"] == 1
+def _plan_view(tr):
+    """The run's plan record (the ``sort.plan`` attrs, or the unfinished
+    record a typed error left on the tracer) and its digest, with the
+    reference's interpreter engine names mapped to the port's."""
+    def norm(v):
+        if isinstance(v, dict):
+            return {k: norm(w) for k, w in v.items()}
+        return _NAMES.get(v, v) if isinstance(v, str) else v
+    return norm(tr.plan.to_attrs()), norm(tr.plan.digest())
+
+
+@pytest.mark.parametrize("spec,algo", [
+    ("dispatch_error", "radix"), ("dispatch_error", "sample"),
+    ("cap_squeeze", "radix"), ("result_dup", "sample"),
+    ("dispatch_oom:inf", "radix"), ("exchange_corrupt:2", "radix"),
+], ids=["retry-radix", "retry-sample", "regrow", "reverify", "descent", "two-rungs"])
+def test_plan_stamps_equal_reference(spec, algo):
+    """The supervisor's and the ladder's stamps (dispatch retries, regrows,
+    verify failures, rung descents with their triggers) give the same
+    ``sort.plan`` attrs and digest as the reference's on CPU ranks."""
+    x = KEYS[:-5]
+    out = []
+    for pkg, mod, tr, mesh, sort in (
+            ("ref", ref_faults, RefTracer(), ref_mesh(8), ref_mt.sort),
+            ("port", faults, Tracer(), _cpu_mesh(8), mt.sort)):
+        mod.install(mod.FaultRegistry(spec, seed=7))
+        try:
+            got = sort(x, algorithm=algo, mesh=mesh, tracer=tr,
+                       exchange_engine="lax", pack="xla")
+        finally:
+            mod.install(None)
+        assert got.tobytes() == np.sort(x).tobytes()
+        out.append((_plan_view(tr), [s.name for s in tr.spans.spans].count("sort.plan")))
+    (ref_view, ref_n), (port_view, port_n) = out
+    assert port_n == ref_n == 1
+    assert port_view == ref_view
+    attrs, digest = port_view
+    if spec == "dispatch_error":
+        assert attrs["decisions"]["ladder"]["actual"] == {"dispatch_retries": 1.0}
+    if spec == "dispatch_oom:inf":
+        assert digest["algo"] == "radix" and attrs["decisions"]["ladder"]["chosen"] == "host"
+        assert attrs["decisions"]["ladder"]["actual"]["rungs_descended"] == 2.0
 
 
 # ---------------------------------------------------------- rung mechanics
@@ -529,3 +586,8 @@ def test_card_ladder_ends_on_its_rung(card, algo, monkeypatch):
         mt.sort(x, algorithm=algo, mesh=make_mesh(8), tracer=tr)
     assert tr.counters["sort_retries"] == 2
     assert not [c for c in _DEGRADED if c in tr.counters]
+    # W6: the unfinished plan record says what happened and counts no
+    # descent: first rung, the two retries as the ladder's regret
+    ladder = tr.plan.to_attrs()["decisions"]["ladder"]
+    assert ladder["chosen"] == algo and ladder["actual"] == {"dispatch_retries": 2.0}
+    assert tr.plan.digest()["exchange_engine"] == "pallas"
