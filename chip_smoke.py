@@ -67,8 +67,9 @@ Phases, each failing loudly (any exception exits non-zero):
              (f) the CLI with ``SORT_RANKS=8`` on a 2^28 SORTBIN1 file,
              ``sample`` and ``radix``;
              (g) ``external_sort()`` under ``radix_pallas`` at fan-in 4
-             (K4 chunk sorts, K8 merge rounds): int32 2^24 at a 98304-byte
-             budget (2731 runs, 6 merge passes) and int64 2^22 at 196608
+             (K4 chunk sorts, K8 merge rounds): int32 2^23 at a 98304-byte
+             budget (1366 runs, 6 merge passes; cut from 2^24, whose
+             host-bound merge took 163 s) and int64 2^22 at 196608
              (683 runs, 5 passes); K8's launches must equal the merge
              rounds of 2..4096 records, counted by wrapping
              ``store.merge._order_for``, K4's histograms the runs (one
@@ -172,6 +173,29 @@ Phases, each failing loudly (any exception exits non-zero):
              ``--explain`` on a 2^24 SORTBIN1 file.  It prints each
              input's host wall and ``plan_regret`` a mode and the mix's
              off/on wall ratio (not asserted).
+             (m) the sort server on the card (``serve_phase``, the twin of
+             the reference's ``bench/serve_load.py``): in-process
+             ``SortServer``s on ``127.0.0.1:0`` driven through the port's
+             client over real sockets — the mixed load (8 closed-loop
+             clients, 160 requests of 2^7-2^10 int32 keys) against an
+             8 ms-window server and a window-0 server with the four gates
+             (warm cache, batched dispatch keys/s >= 2x window 0, typed
+             backpressure at ``SORT_SERVE_MAX_INFLIGHT=1``, a poisoned
+             request typed ``integrity`` on eight ranks); one scrape of
+             ``/metrics``, ``/healthz`` and ``/varz`` equal to the
+             clients' counts; solo int32 2^26 (K1) and int64 2^25 (K2,
+             K3) on one rank, int32 2^26 on a ``SORT_DEVICES=8`` server
+             with radix and sample (K6, K7); a record request (2^24, 8
+             payload bytes); a spill request (2^24 against 2^25 bytes);
+             the watchdog drill (``dispatch_stall``: trip, typed
+             rejection, a flight artifact through ``check_rows``,
+             half-open recovery); ``python -m
+             mpitest_tpu_torch.sort_server`` in a subprocess (listening
+             line, a round trip, SIGTERM drain, exit 0).  Every reply
+             equals ``np.sort``; the phase's timings line (p50/p99,
+             dispatch keys/s and their ratio, prewarm, first and warm
+             solo latency, the server's wall against an in-process
+             ``sort()``, the phase wall) comes before the kernels line.
              Every clean phase (1-4) asserts that no Tracer it created
              holds a fault or ladder counter (``LADDER_COUNTERS``).
              Every output equals its oracle (np.sort, or torch.sort on the
@@ -208,8 +232,8 @@ Phases, each failing loudly (any exception exits non-zero):
              beside the clean wall, the descent's rungs); phase 3l's walls,
              regrets and mix ratio; phase 3i's notes (record sort
              Mkeys/s, ingest stage seconds and overlap, donation memory),
-             its wall, phase 3j's notes and wall, and the smoke's total
-             wall.
+             its wall, phase 3j's notes and wall, phase 3m's wall, and
+             the smoke's total wall.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -883,6 +907,420 @@ def plant_pathology(log, rule: str, backend: str = "cuda") -> None:
             log.record("serve.deadline", 12.0 + i, 0.0, stage="queue")
     else:
         raise KeyError(rule)
+
+
+#: Phase 3m's sizes on the card: the mixed load (the reference's
+#: ``bench/serve_load.py`` shape: C closed-loop clients, log-uniform
+#: 2^7..2^10 int32 keys), the one-rank solo requests (int32 2^26 is 2^28
+#: bytes, exactly the default ``SORT_SERVE_MAX_BYTES``), the eight-rank
+#: request, the record request, the spill request against its byte bound,
+#: and the watchdog drill's request.
+SERVE_SIZES = {"mix_requests": 160, "clients": 8, "solo32": 1 << 26,
+               "solo64": 1 << 25, "ranks8": 1 << 26, "records": 1 << 24,
+               "spill": 1 << 24, "spill_bytes": 1 << 25, "drill": 1 << 20}
+#: The batching gate of ``bench/serve_load.py``: batched dispatch keys/s
+#: at least this multiple of the window-0 server's.
+MIN_BATCH_SPEEDUP = 2.0
+
+
+def serve_phase(mesh_for, sizes: dict, log, *, card: bool,
+                driver_cmd: list[str]) -> tuple[dict, list, dict]:
+    """Phase 3m: the sort server on the card.  Every leg runs against an
+    in-process ``SortServer`` on ``127.0.0.1:0``, through the port's
+    client, over real sockets, and every reply's bytes must equal
+    ``np.sort`` of its request (records: the stable permutation).
+
+    ``mesh_for(P)`` makes a P-rank mesh (the card's on the card).  The
+    legs: the mixed load against a ``SORT_SERVE_BATCH_WINDOW_MS=8`` server
+    and a window-0 server with ``bench/serve_load.py``'s four gates (warm
+    cache: no ``jit_compile_execute`` span and no cache miss in the
+    measured window; batched dispatch keys/s >= ``MIN_BATCH_SPEEDUP`` x
+    window 0; typed backpressure at ``SORT_SERVE_MAX_INFLIGHT=1`` while
+    still serving; a poisoned request typed ``integrity`` and the next one
+    served); one scrape of ``/metrics``, ``/healthz`` and ``/varz`` whose
+    request counters equal the clients' own counts; one-rank solo int32
+    and int64 requests (first and warm latency, the server's wall against
+    an in-process ``sort()``); an eight-rank server's solo request with
+    radix and with sample; a record request; a spill request; the watchdog
+    drill (trip, typed fast rejections, a flight artifact that passes
+    ``report.check_rows``, half-open recovery without a restart); and one
+    subprocess run of ``driver_cmd`` (the listening line, a round trip,
+    SIGTERM drain with exit 0).  With ``card`` each leg's kernel launches
+    are asserted.  Returns (launches by leg, the tracers a fault leg
+    dirtied on purpose, the timings)."""
+    import signal
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    import numpy as np
+
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch import report
+    from mpitest_tpu_torch.ops import _build
+    from mpitest_tpu_torch.serve.client import ServeClient
+    from mpitest_tpu_torch.serve.server import ServerCore, SortServer
+    from mpitest_tpu_torch.serve.telemetry import TelemetryServer
+    from mpitest_tpu_torch.utils import flight_recorder
+    from mpitest_tpu_torch.utils.metrics_live import check_exposition, parse_prom_text
+
+    t_phase = time.perf_counter()
+    legs: dict[str, dict[str, int]] = {}
+    fault_tracers: list = []
+    timings: dict = {}
+    host = "127.0.0.1"
+
+    def core_with(P: int, **knobs_env: str):
+        with env(**knobs_env):
+            return ServerCore(mesh_for(P))
+
+    @contextlib.contextmanager
+    def serving(core):
+        srv = SortServer(core, host, 0)
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        try:
+            yield srv.bound_port
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            if not core.drain_and_stop(timeout=60.0):
+                raise AssertionError("3m: a server did not drain cleanly")
+
+    @contextlib.contextmanager
+    def leg(name: str, must: tuple[str, ...] = ()):
+        before = dict(_build.LAUNCHES)
+        yield
+        got = {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+               if v - before.get(k, 0)}
+        legs[name] = got
+        if card:
+            for k in must:
+                if not got.get(k):
+                    raise AssertionError(f"3m {name}: kernel {k} never launched "
+                                         f"({got})")
+        log(f"[serve] {name}: launches {got}")
+
+    def check(label: str, reply, x, payload=None) -> None:
+        if not reply.ok:
+            raise AssertionError(f"3m {label}: {reply.header}")
+        if payload is None:
+            want = np.sort(x)
+            if not np.array_equal(reply.arr.view(np.uint8), want.view(np.uint8)):
+                raise AssertionError(f"3m {label}: reply differs from np.sort")
+            return
+        order = np.argsort(x, kind="stable")
+        if not (np.array_equal(reply.arr, x[order])
+                and np.array_equal(reply.payload, payload[order])):
+            raise AssertionError(f"3m {label}: record reply differs")
+
+    def run_load(port: int, requests: int, clients: int, seed: int) -> dict:
+        lock = threading.Lock()
+        lat: list[float] = []
+        statuses: dict[str, int] = {}
+        bad: list[str] = []
+        claimed = [0]
+
+        def worker(w: int) -> None:
+            rng = np.random.default_rng(seed + w)
+            with ServeClient(host, port, timeout=120) as c:
+                while True:
+                    with lock:
+                        if claimed[0] >= requests:
+                            return
+                        claimed[0] += 1
+                    n = int(2 ** rng.uniform(7, 10))
+                    x = rng.integers(-2**31, 2**31 - 1, size=n, dtype=np.int32)
+                    t0 = time.perf_counter()
+                    r = c.sort(x)
+                    dt = time.perf_counter() - t0
+                    with lock:
+                        st = "ok" if r.ok else str(r.error)
+                        statuses[st] = statuses.get(st, 0) + 1
+                        if r.ok:
+                            lat.append(dt)
+                            if not np.array_equal(r.arr, np.sort(x)):
+                                bad.append(r.trace_id)
+
+        ts = [threading.Thread(target=worker, args=(w,)) for w in range(clients)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if bad:
+            raise AssertionError(f"3m mixed load: {len(bad)} replies differ from np.sort")
+        return {"wall_s": time.perf_counter() - t0, "lat": sorted(lat),
+                "statuses": statuses}
+
+    def dispatch_keys_per_s(spans: list) -> float:
+        batches = [s for s in spans if s.name == "serve.batch"]
+        secs = sum(s.dt for s in batches)
+        return sum(s.attrs.get("keys", 0) for s in batches) / secs if secs else 0.0
+
+    def measured(core, port: int, seed: int) -> tuple[dict, list, dict]:
+        """Warm-up, then the measured window's load and spans."""
+        warm = run_load(port, max(16, sizes["clients"]), sizes["clients"], seed + 1000)
+        window: list = []
+        core.tracer.spans.observers.append(window.append)
+        stats = run_load(port, sizes["mix_requests"], sizes["clients"], seed)
+        core.tracer.spans.observers.remove(window.append)
+        if stats["statuses"] != {"ok": sizes["mix_requests"]}:
+            raise AssertionError(f"3m mixed load statuses {stats['statuses']}")
+        combined = dict(warm["statuses"])
+        for k, v in stats["statuses"].items():
+            combined[k] = combined.get(k, 0) + v
+        return stats, window, combined
+
+    # ---- the mixed load: batched (window 8 ms) with the side port
+    core_b = core_with(1, SORT_SERVE_BATCH_WINDOW_MS="8")
+    t0 = time.perf_counter()
+    core_b.prewarm(log)
+    timings["prewarm_s"] = time.perf_counter() - t0
+    tel = TelemetryServer(core_b, host, 0)
+    tel.start()
+    try:
+        with leg("mixed load, window 8 ms"), serving(core_b) as port:
+            stats_b, spans_b, combined = measured(core_b, port, 2026)
+            compiles = [s for s in spans_b if s.name == "jit_compile_execute"]
+            misses = [s for s in spans_b if s.name == "serve.compile_cache"
+                      and not s.attrs.get("hit")]
+            if compiles or misses:
+                raise AssertionError(f"3m warm-cache gate: {len(compiles)} "
+                                     f"jit_compile_execute, {len(misses)} misses")
+            if not any(s.name == "serve.request" and s.attrs.get("batched")
+                       for s in spans_b):
+                raise AssertionError("3m: batching never engaged")
+            base = f"http://{host}:{tel.bound_port}"
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+                prom = r.read().decode()
+            with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+                healthz = json.loads(r.read())
+            with urllib.request.urlopen(base + "/varz", timeout=30) as r:
+                varz = json.loads(r.read())
+        if check_exposition(prom):
+            raise AssertionError(f"3m /metrics: {check_exposition(prom)}")
+        served = {lbl["status"]: int(v) for _n, lbl, v in
+                  parse_prom_text(prom)["sort_serve_requests_total"]["samples"]}
+        if served != combined or healthz["requests_ok"] != combined.get("ok"):
+            raise AssertionError(f"3m side port: server counts {served} / "
+                                 f"{healthz['requests_ok']} != client counts {combined}")
+        if varz["mesh"]["platform"] != ("cuda" if card else "cpu") or \
+                varz["cache"]["misses"] != len(varz["cache"]["buckets"]):
+            raise AssertionError(f"3m /varz: {varz['mesh']} {varz['cache']}")
+        log(f"[serve] side port: /metrics {served} == clients' {combined}, "
+            f"/healthz ok={healthz['ok']}, /varz cache {varz['cache']}")
+    finally:
+        tel.shutdown()
+        tel.server_close()
+    lat = stats_b["lat"]
+    timings["p50_ms"] = 1e3 * lat[len(lat) // 2]
+    timings["p99_ms"] = 1e3 * lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+    timings["batched_keys_per_s"] = dispatch_keys_per_s(spans_b)
+
+    # ---- the mixed load against a window-0 server
+    core_0 = core_with(1, SORT_SERVE_BATCH_WINDOW_MS="0")
+    core_0.prewarm()
+    with leg("mixed load, window 0"), serving(core_0) as port:
+        stats_0, spans_0, _ = measured(core_0, port, 2026)
+    timings["window0_keys_per_s"] = dispatch_keys_per_s(spans_0)
+    timings["batch_speedup"] = timings["batched_keys_per_s"] / timings["window0_keys_per_s"]
+    if timings["batch_speedup"] < MIN_BATCH_SPEEDUP:
+        raise AssertionError(f"3m batching gate: {timings['batch_speedup']:.2f}x < "
+                             f"{MIN_BATCH_SPEEDUP}x")
+    log(f"[serve] batching gate: dispatch {timings['batched_keys_per_s'] / 1e6:.3f} vs "
+        f"{timings['window0_keys_per_s'] / 1e6:.3f} Mkeys/s = "
+        f"{timings['batch_speedup']:.2f}x; closed-loop walls "
+        f"{stats_b['wall_s']:.3f} / {stats_0['wall_s']:.3f} s")
+
+    # ---- one rank: the large solo requests, a record request
+    rng = np.random.default_rng(31)
+    core_1 = core_with(1)
+    core_1.prewarm()
+    with serving(core_1) as port, ServeClient(host, port, timeout=600) as c:
+        x = rng.integers(-2**31, 2**31 - 1, size=sizes["solo32"], dtype=np.int32)
+        walls = []
+        with leg(f"solo int32 2^{sizes['solo32'].bit_length() - 1}, one rank",
+                 ("bitonic_u32",)):
+            for i in range(2):
+                t0 = time.perf_counter()
+                r = c.sort(x, trace_id=f"solo32-{i}")
+                walls.append(time.perf_counter() - t0)
+                check("solo int32", r, x)
+                if r.header["batched"]:
+                    raise AssertionError("3m: a solo request was batched")
+        req_s = [s.dt for s in core_1.tracer.spans.spans
+                 if s.name == "serve.request" and s.attrs.get("trace_id") == "solo32-1"]
+        mesh1 = core_1.mesh
+        mt.sort(x, mesh=mesh1)
+        t0 = time.perf_counter()
+        mt.sort(x, mesh=mesh1)
+        inproc = time.perf_counter() - t0
+        timings.update(solo_first_s=walls[0], solo_warm_s=walls[1],
+                       solo_server_s=req_s[0], solo_inprocess_s=inproc)
+        log(f"[serve] solo int32: first {walls[0]:.3f} s, warm {walls[1]:.3f} s round "
+            f"trip; serve.request {req_s[0]:.3f} s; in-process sort() {inproc:.3f} s")
+        del x, r
+        x64 = rng.integers(-2**63, 2**63 - 1, size=sizes["solo64"], dtype=np.int64)
+        with leg(f"solo int64 2^{sizes['solo64'].bit_length() - 1}, one rank",
+                 ("bitonic_pairs_u32", "fix_runs_pairs")):
+            t0 = time.perf_counter()
+            r = c.sort(x64)
+            timings["solo64_s"] = time.perf_counter() - t0
+            check("solo int64", r, x64)
+        del x64, r
+        xr = rng.integers(-2**31, 2**31 - 1, size=sizes["records"], dtype=np.int32)
+        pay = rng.integers(0, 256, size=(xr.size, 8), dtype=np.uint8)
+        with leg("records int32, 8 payload bytes"):
+            t0 = time.perf_counter()
+            r = c.sort(xr, payload=pay)
+            timings["records_s"] = time.perf_counter() - t0
+            check("records", r, xr, pay)
+        del xr, pay, r
+
+    # ---- eight ranks: one solo request with radix and with sample
+    with env(SORT_DEVICES="8"):
+        core_8 = ServerCore() if card else ServerCore(mesh_for(8))
+    if core_8.mesh.size != 8:
+        raise AssertionError(f"3m: SORT_DEVICES=8 server has {core_8.mesh.size} ranks")
+    core_8.prewarm()
+    x = rng.integers(-2**31, 2**31 - 1, size=sizes["ranks8"], dtype=np.int32)
+    with serving(core_8) as port, ServeClient(host, port, timeout=600) as c:
+        for algo in ("radix", "sample"):
+            with leg(f"eight ranks int32 {algo}", ("fused_pass_pack", "remote_a2a")):
+                t0 = time.perf_counter()
+                r = c.sort(x, algo=algo)
+                timings[f"ranks8_{algo}_s"] = time.perf_counter() - t0
+                check(f"eight ranks {algo}", r, x)
+                if r.plan["algo"] != algo or "exchange_engine" not in r.plan:
+                    raise AssertionError(f"3m eight ranks: plan {r.plan}")
+    del x, r
+
+    # ---- the spill tier
+    core_s = core_with(1, SORT_SERVE_MAX_BYTES=str(sizes["spill_bytes"]))
+    xs = rng.integers(-2**31, 2**31 - 1, size=sizes["spill"], dtype=np.int32)
+    with leg("spill int32", ("bitonic_u32",)), serving(core_s) as port, \
+            ServeClient(host, port, timeout=600) as c:
+        t0 = time.perf_counter()
+        r = c.sort(xs)
+        timings["spill_s"] = time.perf_counter() - t0
+        check("spill", r, xs)
+        if not r.spilled or not r.plan.get("spilled"):
+            raise AssertionError(f"3m spill: {r.header}")
+    del xs, r
+
+    # ---- backpressure and per-request fault isolation (eight ranks: the
+    # result-corruption sites live on the distributed path)
+    core_l = core_with(8, SORT_SERVE_MAX_INFLIGHT="1", SORT_SERVE_BATCH_WINDOW_MS="20",
+                       SORT_SERVE_ALLOW_FAULTS="1")
+    fault_tracers.append(core_l.tracer)
+    core_l.prewarm()
+    with leg("backpressure and fault isolation"), serving(core_l) as port, \
+            env(SORT_FALLBACK="0", SORT_MAX_RETRIES="0"):
+        burst = run_load(port, 16, 8, 3000)
+        if burst["statuses"].get("backpressure", 0) < 1 or \
+                burst["statuses"].get("ok", 0) < 1 or \
+                set(burst["statuses"]) != {"ok", "backpressure"}:
+            raise AssertionError(f"3m backpressure gate: {burst['statuses']}")
+        xf = rng.integers(-2**31, 2**31 - 1, size=sizes["drill"], dtype=np.int32)
+        with ServeClient(host, port, timeout=600) as c:
+            r = c.sort(xf, faults="result_swap:inf")
+            if r.ok or r.error != "integrity":
+                raise AssertionError(f"3m fault gate: {r.header}")
+            check("after the poisoned request", c.sort(xf), xf)
+    log(f"[serve] backpressure burst {burst['statuses']}; poisoned request typed "
+        "integrity, the next one served")
+
+    # ---- the watchdog drill (eight ranks, dispatch_stall on the dispatch
+    # thread: a wedged CUDA stream cannot be cancelled, only tripped over)
+    with tempfile.TemporaryDirectory() as flight_dir:
+        with env(SORT_FLIGHT_RECORDER_DIR=flight_dir):
+            flight_recorder.reset()
+            core_w = core_with(8, SORT_SERVE_ALLOW_FAULTS="1",
+                               SORT_SERVE_DISPATCH_TIMEOUT_S="1",
+                               SORT_SERVE_BREAKER_BACKOFF_S="0.5",
+                               SORT_SERVE_BATCH_WINDOW_MS="0")
+            fault_tracers.append(core_w.tracer)
+            core_w.prewarm()
+            xw = rng.integers(-2**31, 2**31 - 1, size=sizes["drill"], dtype=np.int32)
+            with leg("watchdog drill"), serving(core_w) as port, \
+                    env(SORT_FAULT_STALL_MS="6000"):
+                with ServeClient(host, port, timeout=600) as c:
+                    check("drill warm-up", c.sort(xw), xw)
+                core_w.start_watchdog()
+                t_drill = time.perf_counter()
+                res: dict = {}
+
+                def stalled() -> None:
+                    with ServeClient(host, port, timeout=600) as c2:
+                        res["r"] = c2.sort(xw, faults="dispatch_stall")
+
+                th = threading.Thread(target=stalled, daemon=True)
+                th.start()
+
+                def wait(pred, secs: float) -> bool:
+                    end = time.monotonic() + secs
+                    while time.monotonic() < end:
+                        if pred():
+                            return True
+                        time.sleep(0.02)
+                    return pred()
+
+                if not wait(lambda: core_w.breaker.state != "closed", 60):
+                    raise AssertionError("3m watchdog never tripped")
+                timings["trip_s"] = time.perf_counter() - t_drill
+                with ServeClient(host, port, timeout=60) as c:
+                    rej = c.sort(xw)
+                if rej.ok or rej.error != "backpressure" or \
+                        "circuit breaker" not in rej.detail:
+                    raise AssertionError(f"3m breaker rejection: {rej.header}")
+                if not wait(lambda: core_w.breaker.state == "closed", 120):
+                    raise AssertionError("3m breaker never recovered")
+                timings["recover_s"] = time.perf_counter() - t_drill
+                th.join(timeout=120)
+                check("the stalled request", res["r"], xw)
+                with ServeClient(host, port, timeout=60) as c:
+                    check("after recovery", c.sort(xw), xw)
+            events = [s.attrs.get("event") for s in core_w.tracer.spans.spans
+                      if s.name == "serve.watchdog"]
+            arts = sorted(Path(flight_dir).glob("flight-*-watchdog-*.jsonl"))
+            if "trip" not in events or "recovered" not in events or \
+                    core_w.breaker.trips != 1 or not arts or \
+                    report.check_rows(report.load_rows(str(arts[-1]))):
+                raise AssertionError(f"3m watchdog audit: events {events}, trips "
+                                     f"{core_w.breaker.trips}, artifacts {arts}")
+        flight_recorder.reset()
+    log(f"[serve] watchdog drill: tripped after {timings['trip_s']:.3f} s, breaker "
+        f"rejection typed, recovered after {timings['recover_s']:.3f} s, artifact "
+        "passes check_rows")
+
+    # ---- the driver, in a subprocess
+    t0 = time.perf_counter()
+    denv = dict(os.environ, SORT_SERVE_PORT="0", SORT_METRICS_PORT="-1")
+    proc = subprocess.Popen(driver_cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=denv)
+    try:
+        line = proc.stdout.readline().strip()
+        m = re.fullmatch(r"sort_server listening on 127\.0\.0\.1:(\d+)", line)
+        if not m:
+            raise AssertionError(f"3m driver: no listening line ({line!r})")
+        timings["driver_start_s"] = time.perf_counter() - t0
+        x = rng.integers(-2**31, 2**31 - 1, size=5000, dtype=np.int32)
+        with ServeClient(host, int(m.group(1)), timeout=120) as c:
+            check("driver round trip", c.sort(x), x)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        err = proc.stderr.read()
+        if rc != 0 or "drained=clean served_ok=1" not in err:
+            raise AssertionError(f"3m driver: exit {rc}, {err[-1000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[serve] driver: listening after {timings['driver_start_s']:.3f} s, one round "
+        "trip, SIGTERM drained, exit 0")
+    timings["phase_wall_s"] = time.perf_counter() - t_phase
+    return legs, fault_tracers, timings
 
 
 def main() -> int:
@@ -1574,9 +2012,11 @@ def main() -> int:
             f"wall {ext_walls[label]:.3f} s")
 
     def external_k8_path() -> None:
-        x = int32_keys(1 << 24)
-        k8_leg("external_sort(np int32 2^24, budget 98304, fan-in 4)", x, 98304,
-               2731, 6)
+        # 2^23 (cut from 2^24, whose host-bound merge took 163 s): the same
+        # six passes at fan-in 4, half the rounds
+        x = int32_keys(1 << 23)
+        k8_leg("external_sort(np int32 2^23, budget 98304, fan-in 4)", x, 98304,
+               1366, 6)
         x = rng.integers(-(2**63), 2**63 - 1, 1 << 22, dtype=np.int64)
         k8_leg("external_sort(np int64 2^22, budget 196608, fan-in 4)", x, 196608,
                683, 5)
@@ -2129,6 +2569,25 @@ def main() -> int:
     log(f"[main] phase 3l (planner, doctor) wall {planner_wall:.3f} s, launches "
         f"{planner_launches}")
 
+    # ------------------------------------------------ 3m. the server on the card
+    serve_out: dict = {}
+
+    def serve_path() -> None:
+        legs, dirty, timings = serve_phase(
+            make_mesh, SERVE_SIZES, log, card=True,
+            driver_cmd=[sys.executable, "-m", "mpitest_tpu_torch.sort_server"])
+        serve_out.update(legs=legs, dirty=dirty, timings=timings)
+
+    serve_launches = run_path("the server on the card (phase 3m)",
+                              (K1, K2, K3, K6, K7), serve_path)
+    # the fault legs' cores set the ladder counters on purpose
+    tracers[:] = [t for t in tracers if not any(t is d for d in serve_out["dirty"])]
+    assert_clean("3m")
+    serve_timings = serve_out["timings"]
+    log(f"[serve] timings {json.dumps(serve_timings, sort_keys=True)} | card {card}")
+    log(f"[main] phase 3m (the server) wall {serve_timings['phase_wall_s']:.3f} s, "
+        f"launches {serve_launches}")
+
     # ---------------------------------------------------------- 4. timing
     entries = []
 
@@ -2466,6 +2925,7 @@ def main() -> int:
     for note in planner_notes:
         log(f"[timing] planner: {note} | card {card}")
     log(f"[timing] phase 3l wall {planner_wall:.3f} s | card {card}")
+    log(f"[timing] phase 3m wall {serve_timings['phase_wall_s']:.3f} s | card {card}")
     for note in slice_notes:
         log(f"[timing] {note} | card {card}")
     for note in tele_notes:

@@ -626,20 +626,50 @@ def explain_view(rows: list[dict], trace_id: str | None = None,
 
 # --------------------------------------------- live metrics snapshots
 
-class NotPortedError(NotImplementedError):
-    """A report mode whose producer is not ported yet."""
-
-
 def render_prom_snapshot(path: str, text: str,
                          slo_target: float = DEFAULT_SLO_TARGET_PCT,
                          ) -> str:
-    """Render a scraped ``/metrics`` snapshot (Prometheus text).  Its
-    parser lives in the reference's ``utils/metrics_live.py``, which comes
-    with the server; until then this raises :class:`NotPortedError`."""
-    raise NotPortedError(
-        f"--prom {path}: the /metrics snapshot needs "
-        "mpitest_tpu_torch/utils/metrics_live.py (parse_prom_text), which "
-        "is not ported yet")
+    """Render a scraped ``/metrics`` snapshot (Prometheus text) beside
+    the span-derived tables: the live mode, for state sampled from a
+    running server instead of a finished trace file.  Includes the
+    error-budget line computed from the request counters."""
+    from mpitest_tpu_torch.utils.metrics_live import parse_prom_text
+
+    fams = parse_prom_text(text)
+    out = [f"live metrics snapshot ({path})"]
+    reqs = fams.get("sort_serve_requests_total")
+    if reqs:
+        by_status = {lbl.get("status", "?"): v
+                     for name, lbl, v in reqs["samples"]}
+        total = int(sum(by_status.values()))
+        errs = int(sum(v for k, v in by_status.items() if k != "ok"))
+        out.append("  requests " + ", ".join(
+            f"{k}={int(v)}" for k, v in sorted(by_status.items())))
+        eb = error_budget(total, errs, slo_target)
+        burn = eb["budget_burn"]
+        out.append(
+            f"  error budget ({eb['slo_target_pct']}% target): "
+            f"{eb['error_rate_pct']}% errors"
+            + (f" -> burn {burn}x" if burn is not None else ""))
+    lat = fams.get("sort_serve_request_latency_seconds")
+    if lat:
+        plain = {n: v for n, lbl, v in lat["samples"] if not lbl}
+        cnt = plain.get("sort_serve_request_latency_seconds_count", 0)
+        tot = plain.get("sort_serve_request_latency_seconds_sum", 0.0)
+        if cnt:
+            out.append(f"  latency mean {1e3 * tot / cnt:.3f} ms "
+                       f"over {int(cnt)} request(s)")
+    for name, label in (("sort_serve_inflight", "in flight"),
+                        ("sort_serve_cache_hits_total", "cache hits"),
+                        ("sort_serve_cache_misses_total", "cache misses"),
+                        ("sort_retries_total", "dispatch retries"),
+                        ("sort_verify_failures_total", "verify failures")):
+        fam = fams.get(name)
+        if fam and fam["samples"]:
+            v = sum(v for _n, _l, v in fam["samples"])
+            out.append(f"  {label}: {int(v)}")
+    out.append(f"  families: {len(fams)}")
+    return "\n".join(out)
 
 
 # ------------------------------------------------------------ regression
@@ -1142,7 +1172,7 @@ def main(argv: list[str] | None = None) -> int:
         try:
             print("\n" + render_prom_snapshot(prom_file, text,
                                               args.slo_target))
-        except (ValueError, NotPortedError) as e:
+        except ValueError as e:
             print(f"[ERROR] {prom_file}: {e}", file=sys.stderr)
             return 1
 

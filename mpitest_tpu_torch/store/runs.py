@@ -789,6 +789,80 @@ def _read_runz_chunks(info: RunInfo, chunk_elems: int):
             pf.close()
 
 
+class InputStage:
+    """Wire-to-disk staging for the serve spill tier: an over-budget
+    request's key and payload bytes stream from the socket into spill-dir
+    files (host memory never holds the request) and come back as memmap
+    views the external sort pages in chunk by chunk."""
+
+    def __init__(self, spill_dir: str, name: str, dtype: np.dtype,
+                 n: int, payload_width: int = 0) -> None:
+        os.makedirs(spill_dir, exist_ok=True)
+        self.path = os.path.join(spill_dir, f"{name}.spill")
+        self.dtype = np.dtype(dtype)
+        self.n = int(n)
+        self.payload_width = int(payload_width)
+        self._kf = open(self.path, "wb")
+        self._kf.write(kio._bin_header(self.dtype))
+        self._pf = None
+        if self.payload_width:
+            self._pf = open(self.path + ".pay", "wb")
+            self._pf.write(_pay_header(self.payload_width))
+
+    def key_sink(self, chunk: bytes) -> None:
+        self._kf.write(chunk)
+
+    def pay_sink(self, chunk: bytes) -> None:
+        assert self._pf is not None
+        self._pf.write(chunk)
+
+    def abort(self) -> None:
+        """Close and delete the staged files (the request died before
+        dispatch: short read, timeout, rejection)."""
+        self._kf.close()
+        if self._pf is not None:
+            self._pf.close()
+        for p in (self.path, self.path + ".pay"):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    def finish(self) -> tuple[np.ndarray, np.ndarray | None]:
+        """Seal the staged files and return memmap views (keys 1-D,
+        payload ``(n, width)``).  The files are unlinked at once: the
+        mmaps keep them alive exactly as long as the dispatch needs them,
+        so no later exit path can leak them."""
+        self._kf.close()
+        got = os.path.getsize(self.path) - kio.BIN_HEADER_LEN
+        want = self.n * self.dtype.itemsize
+        if got != want:
+            self.abort()
+            raise RunFormatError(
+                f"staged input {self.path!r}: {got} key bytes, "
+                f"expected {want}")
+        keys = np.memmap(self.path, dtype=self.dtype, mode="r",
+                         offset=kio.BIN_HEADER_LEN)
+        pay = None
+        if self._pf is not None:
+            self._pf.close()
+            pgot = os.path.getsize(self.path + ".pay") - PAY_HEADER_LEN
+            if pgot != self.n * self.payload_width:
+                self.abort()
+                raise RunFormatError(
+                    f"staged payload {self.path + '.pay'!r}: {pgot} "
+                    f"bytes, expected {self.n * self.payload_width}")
+            pay = np.memmap(self.path + ".pay", dtype=np.uint8,
+                            mode="r", offset=PAY_HEADER_LEN)
+            pay = pay.reshape(self.n, self.payload_width)
+        for p in (self.path, self.path + ".pay"):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+        return keys, pay
+
+
 def remove_run(info: RunInfo) -> None:
     """Best-effort deletion of a run's files (keys, payload, sidecar)
     — the external sort's cleanup: partition and intermediate runs
@@ -809,6 +883,34 @@ def remove_run_paths(path: str) -> None:
             os.unlink(p)
         except OSError:
             pass
+
+
+def run_body_views(info: RunInfo,
+                   unlink: bool = False) -> list[memoryview]:
+    """Zero-copy memoryviews of a run's key body (and payload body): the
+    spill tier's reply source, sent to the socket without materializing
+    the merged result.  With ``unlink`` the files are deleted now; the
+    mmaps keep the bytes reachable until the views are dropped."""
+    if info.compressed:
+        # output runs are always written raw (the wire layer serves their
+        # bodies verbatim): a compressed run here is a routing bug
+        raise RunFormatError(
+            f"run file {info.path!r} is SORTRUN2-compressed; only raw "
+            "runs can serve zero-copy body views")
+    mm = np.memmap(info.path, dtype=np.uint8, mode="r",
+                   offset=kio.BIN_HEADER_LEN)
+    views = [memoryview(mm)]
+    if info.payload_width:
+        pm = np.memmap(info.pay_path, dtype=np.uint8, mode="r",
+                       offset=PAY_HEADER_LEN)
+        views.append(memoryview(pm))
+    if unlink:
+        for p in (info.path, info.pay_path, info.sidecar_path):
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+    return views
 
 
 def verify_run(info: RunInfo, chunk_elems: int = 1 << 20) -> bool:

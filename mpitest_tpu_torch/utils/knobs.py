@@ -1,10 +1,13 @@
 """Env-knob registry of the port — the one place it reads the environment.
 
 A subset of the reference registry (``mpitest_tpu/utils/knobs.py``): the
-knobs the sort paths, the external sort, the key-file CLI and its readers
-read, with the same names, defaults and message contract.  A bad value
-raises :class:`KnobError` (a ``ValueError``) whose text names the knob and
-the accepted values.
+knobs the sort paths, the external sort, the key-file CLI and its readers,
+and the sort server (``serve/``) read, with the same names, defaults and
+message contract.  A bad value raises :class:`KnobError` (a
+``ValueError``) whose text names the knob and the accepted values;
+:func:`validate` parses a list of them up front (the drivers' fail-fast
+``[ERROR]`` line), :func:`iter_knobs` and :func:`get_raw` serve the
+server's ``/varz`` view of what was set.
 """
 
 from __future__ import annotations
@@ -13,11 +16,12 @@ import math
 import os
 import tempfile
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import numpy as np
 
-__all__ = ["Knob", "KnobError", "get", "register"]
+__all__ = ["Knob", "KnobError", "get", "get_raw", "iter_knobs", "register",
+           "validate"]
 
 
 class KnobError(ValueError):
@@ -53,6 +57,26 @@ def get(name: str) -> Any:
     """Typed, validated value of registered knob ``name`` (its default
     when unset); ``KeyError`` for unregistered names."""
     return _REGISTRY[name].read()
+
+
+def get_raw(name: str) -> str | None:
+    """The raw (unparsed) string value of a registered knob, or None when
+    unset; ``KeyError`` for unregistered names, like :func:`get`."""
+    return os.environ.get(_REGISTRY[name].name)
+
+
+def validate(*names: str) -> None:
+    """Fail-fast parse of the named knobs (every registered knob when none
+    is named): garbage in any of them raises :class:`KnobError` here, not
+    in the middle of a sort."""
+    for name in names or tuple(_REGISTRY):
+        _REGISTRY[name].read()
+
+
+def iter_knobs() -> Iterator[Knob]:
+    """Registered knobs in name order."""
+    for name in sorted(_REGISTRY):
+        yield _REGISTRY[name]
 
 
 def _flag(name: str) -> Callable[[str], bool]:
@@ -91,14 +115,16 @@ def _int(name: str, lo: int) -> Callable[[str], int]:
     return parse
 
 
-def _float_at_least(name: str, lo: float) -> Callable[[str], float]:
+def _float_at_least(name: str, lo: float,
+                    note: str | None = None) -> Callable[[str], float]:
     def parse(raw: str) -> float:
         try:
             v = float(raw)
         except ValueError:
             v = math.nan
         if not math.isfinite(v) or v < lo:
-            raise KnobError(f"{name}={raw!r}: use a finite number >= {lo:g}")
+            extra = f" ({note})" if note else ""
+            raise KnobError(f"{name}={raw!r}: use a finite number >= {lo:g}{extra}")
         return v
     return parse
 
@@ -412,3 +438,126 @@ register("SORT_PLANNER_HYSTERESIS", 1.5,
          "Minimum up/down ratio a serve-tuner recommendation must differ by "
          "before it may commit.",
          _parse_hysteresis)
+
+
+# The sort server (serve/ and sort_server.py), with the reference's
+# defaults and messages; the drivers validate them fail-fast at startup.
+
+
+def _int_in(name: str, lo: int, hi: int, msg: str) -> Callable[[str], int]:
+    def parse(raw: str) -> int:
+        try:
+            v = int(raw)
+        except ValueError:
+            v = lo - 1
+        if not lo <= v <= hi:
+            raise KnobError(f"{name}={raw!r}: {msg}") from None
+        return v
+    return parse
+
+
+def _parse_buckets(raw: str) -> tuple[int, ...]:
+    out = []
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        try:
+            v = int(part)
+        except ValueError:
+            v = 0
+        if not 1 <= v <= 30:
+            raise KnobError(
+                f"SORT_SERVE_SHAPE_BUCKETS={raw!r}: use a comma list of "
+                "log2 bucket sizes in [1, 30]") from None
+        out.append(v)
+    if not out:
+        raise KnobError(f"SORT_SERVE_SHAPE_BUCKETS={raw!r}: use a comma "
+                        "list of log2 bucket sizes in [1, 30]")
+    return tuple(sorted(set(out)))
+
+
+register("SORT_SERVE_PORT", 7077,
+         "TCP port the sort server listens on (0 = ephemeral).",
+         _int_in("SORT_SERVE_PORT", 0, 65535,
+                 "use an integer in [0, 65535] (0 = ephemeral)"))
+register("SORT_SERVE_HOST", "127.0.0.1",
+         "Address the sort server binds (default loopback).",
+         _passthrough)
+register("SORT_SERVE_MAX_INFLIGHT", 64,
+         "Admission bound: concurrent in-flight requests before typed "
+         "backpressure rejection.",
+         _int("SORT_SERVE_MAX_INFLIGHT", 1))
+register("SORT_SERVE_MAX_BYTES", 1 << 28,
+         "Admission bound: total in-flight request payload bytes.",
+         _int("SORT_SERVE_MAX_BYTES", 1))
+register("SORT_SERVE_BATCH_WINDOW_MS", 2.0,
+         "Batching window: how long a dispatch waits to pack more small "
+         "requests (0 = dispatch each alone).",
+         _float_at_least("SORT_SERVE_BATCH_WINDOW_MS", 0.0,
+                         note="0 disables packing"))
+register("SORT_SERVE_BATCH_KEYS", 1 << 16,
+         "Requests up to this many keys are batchable; one packed dispatch "
+         "carries at most this many keys.",
+         _int("SORT_SERVE_BATCH_KEYS", 1))
+# every bucket the packed path can request: bucket_for() floors at 2^10
+# and a packed dispatch carries at most SORT_SERVE_BATCH_KEYS (2^16) keys
+register("SORT_SERVE_SHAPE_BUCKETS", (10, 11, 12, 13, 14, 15, 16),
+         "Power-of-two shape buckets the executor cache warms at server "
+         "startup.",
+         _parse_buckets)
+register("SORT_SERVE_PREWARM", "auto",
+         "Warm the executor cache (and build the kernels) at startup "
+         "(off = on first use).",
+         _enum("SORT_SERVE_PREWARM", ("auto", "off")))
+register("SORT_SERVE_ALLOW_FAULTS", False,
+         "Honor per-request fault-injection specs (test mode only; "
+         "production servers reject them as bad requests).",
+         _flag("SORT_SERVE_ALLOW_FAULTS"))
+register("SORT_SERVE_IDLE_TIMEOUT_S", 300.0,
+         "Per-connection idle bound: seconds a keep-alive connection may "
+         "sit between requests before the server closes it.",
+         _float_above("SORT_SERVE_IDLE_TIMEOUT_S", 0.0, "a finite number > 0"))
+register("SORT_SERVE_READ_TIMEOUT_S", 30.0,
+         "Total wire-read budget per request (payload reads, rejected-"
+         "payload drains, response writes).",
+         _float_above("SORT_SERVE_READ_TIMEOUT_S", 0.0, "a finite number > 0"))
+register("SORT_SERVE_DISPATCH_TIMEOUT_S", 120.0,
+         "Dispatch watchdog bound: a single dispatch exceeding this trips "
+         "the circuit breaker (healthz 503, fast typed rejections).",
+         _float_at_least("SORT_SERVE_DISPATCH_TIMEOUT_S", 0.0,
+                         note="0 disables the watchdog"))
+register("SORT_SERVE_BREAKER_BACKOFF_S", 5.0,
+         "Seconds the tripped circuit breaker stays open before half-opening "
+         "with a probe request (doubles per failed probe).",
+         _float_above("SORT_SERVE_BREAKER_BACKOFF_S", 0.0, "a finite number > 0"))
+register("SORT_SERVE_COMPLETION_TIMEOUT_S", 600.0,
+         "Backstop bound a handler thread waits for its dispatched request "
+         "before failing it typed 'internal'.",
+         _float_above("SORT_SERVE_COMPLETION_TIMEOUT_S", 0.0,
+                      "a finite number > 0"))
+register("SORT_SERVE_SPILL", "auto",
+         "Route serve requests larger than SORT_SERVE_MAX_BYTES to the "
+         "out-of-core spill tier instead of a typed 'bytes' rejection.",
+         _enum("SORT_SERVE_SPILL", ("auto", "off")))
+register("SORT_METRICS_PORT", 0,
+         "Side port for the server's live /metrics, /healthz, /varz, "
+         "/flightrecorder, /profile endpoints (0 = ephemeral, -1 = off).",
+         _int_in("SORT_METRICS_PORT", -1, 65535,
+                 "use an integer in [-1, 65535] (0 = ephemeral, "
+                 "-1 = disabled)"))
+register("SORT_PROFILE_EVERY", 0,
+         "Capture a torch.profiler trace around every Nth server dispatch "
+         "(into SORT_PROFILE, else <flight dir>/profile).",
+         _int("SORT_PROFILE_EVERY", 0))
+register("SORT_SENTINEL", "on",
+         "Streaming SLO sentinel in the serve core (off detaches it).",
+         _enum("SORT_SENTINEL", ("on", "off")))
+register("SORT_SENTINEL_WINDOW_S", 60.0,
+         "Rolling evaluation window of the sentinel's series, also the "
+         "per-rule alert cooldown.",
+         _float_above("SORT_SENTINEL_WINDOW_S", 0.0, "a finite number > 0"))
+register("SORT_ALERT_BURN_RATE", 2.0,
+         "Error-budget burn-rate multiple (vs the 99.9% SLO allowance) at "
+         "which the sentinel raises deadline_burn.",
+         _float_above("SORT_ALERT_BURN_RATE", 0.0, "a finite number > 0"))

@@ -10,8 +10,8 @@ sorts under ``SORT_PLANNER=shadow`` and ``on``, the reference's trace of
 the same calls, and the planted rows of ``tests/test_report.py``).
 ``main`` gives the same exit code and output for ``--check``,
 ``--explain``, ``--doctor``, ``--trace-id`` and the default tables, and
-runs as ``python -m mpitest_tpu_torch.report``; ``--prom`` raises a typed
-error naming the missing ``utils/metrics_live.py``.  The port CLI's
+runs as ``python -m mpitest_tpu_torch.report``; ``--prom`` renders the
+reference's ``/metrics`` snapshot view.  The port CLI's
 ``--explain`` prints the reference's decision tree on the same file.
 """
 
@@ -222,13 +222,40 @@ def test_main_explain_and_doctor_take_a_file_argument(sources, capsys):
 
 
 def test_prom_raises_a_typed_error_naming_the_module(sources, tmp_path, capsys):
+    """``--prom``: a scrape renders the reference's snapshot view (requests,
+    error budget, latency, counters), and a malformed scrape is the same
+    typed ``ValueError`` (naming the line) with exit 1 in both packages."""
+    from mpitest_tpu.utils.metrics_live import LiveMetrics as RefLive
+    from mpitest_tpu_torch.utils.metrics_live import LiveMetrics
+
+    texts = []
+    for live in (LiveMetrics(), RefLive()):
+        live.counter("sort_serve_requests_total").inc(99, status="ok")
+        live.counter("sort_serve_requests_total").inc(1, status="internal")
+        live.histogram("sort_serve_request_latency_seconds").observe(0.003)
+        live.gauge("sort_serve_inflight").set(2)
+        live.counter("sort_serve_cache_hits_total").inc(5)
+        texts.append(live.render_prom())
+    assert texts[0] == texts[1]
     prom = tmp_path / "m.prom"
-    prom.write_text("sort_serve_inflight 1\n")
-    with pytest.raises(report.NotPortedError, match="metrics_live"):
-        report.render_prom_snapshot(str(prom), prom.read_text())
-    assert report.main([sources["planted"], "--prom", str(prom)]) == 1
-    err = capsys.readouterr().err.splitlines()
-    assert err[-1].startswith("[ERROR]") and "metrics_live.py" in err[-1]
+    prom.write_text(texts[0])
+    got = report.render_prom_snapshot(str(prom), prom.read_text())
+    assert got == ref_report.render_prom_snapshot(str(prom), prom.read_text())
+    assert "requests internal=1, ok=99" in got and "burn 10.0x" in got
+    outs = []
+    for mod in (report, ref_report):
+        rc = mod.main([sources["planted"], "--prom", str(prom)])
+        outs.append((rc, capsys.readouterr().out))
+    assert outs[0] == outs[1] and outs[0][0] == 0
+    bad = tmp_path / "bad.prom"
+    bad.write_text("sort_serve_inflight oops\n")
+    with pytest.raises(ValueError, match="line 1"):
+        report.render_prom_snapshot(str(bad), bad.read_text())
+    errs = []
+    for mod in (report, ref_report):
+        assert mod.main([sources["planted"], "--prom", str(bad)]) == 1
+        errs.append(capsys.readouterr().err.splitlines()[-1])
+    assert errs[0] == errs[1] and errs[0].startswith("[ERROR]")
 
 
 def test_host_fingerprint_equals_reference():

@@ -185,8 +185,8 @@ def test_telemetry_knob_defaults_follow_reference(monkeypatch):
     assert knobs.get("SORT_TRACE_SAMPLE") == 0.25
     assert os.path.basename(knobs.get("SORT_FLIGHT_RECORDER_DIR")) == \
         os.path.basename(ref_knobs.get("SORT_FLIGHT_RECORDER_DIR"))
-    with pytest.raises(KeyError):
-        knobs.get("SORT_PROFILE_EVERY")   # the server's; not ported
+    monkeypatch.delenv("SORT_PROFILE_EVERY", raising=False)
+    assert knobs.get("SORT_PROFILE_EVERY") == ref_knobs.get("SORT_PROFILE_EVERY")
 
 
 # ------------------------------------------------- memory and first calls
