@@ -67,10 +67,11 @@ Phases, each failing loudly (any exception exits non-zero):
              (f) the CLI with ``SORT_RANKS=8`` on a 2^28 SORTBIN1 file,
              ``sample`` and ``radix``;
              (g) ``external_sort()`` under ``radix_pallas`` at fan-in 4
-             (K4 chunk sorts, K8 merge rounds): int32 2^23 at a 98304-byte
-             budget (1366 runs, 6 merge passes; cut from 2^24, whose
-             host-bound merge took 163 s) and int64 2^22 at 196608
-             (683 runs, 5 passes); K8's launches must equal the merge
+             (K4 chunk sorts, K8 merge rounds): int32 2^22 at a 98304-byte
+             budget (683 runs, 5 merge passes; cut from 2^24 and 2^23,
+             whose host-bound merges took 163 and 67 s) and int64 2^21 at
+             196608 (342 runs, 5 passes; cut from 2^22, 47 s); K8's
+             launches must equal the merge
              rounds of 2..4096 records, counted by wrapping
              ``store.merge._order_for``, K4's histograms the runs (one
              chunk sort a run) and its pass launches the planned passes;
@@ -196,6 +197,27 @@ Phases, each failing loudly (any exception exits non-zero):
              dispatch keys/s and their ratio, prewarm, first and warm
              solo latency, the server's wall against an in-process
              ``sort()``, the phase wall) comes before the kernels line.
+             (n) the reference's spawned-server gates against the port's
+             server as its own process (``spawned_phase``,
+             ``mpitest_tpu_torch/selftest/``): the live-telemetry leg on
+             eight ranks (trace ids rebuilt by ``report --trace-id``,
+             ``/metrics`` reconciled, every side-port route, a fault's
+             flight dump through ``--check``, a sampled stream, the
+             explain leg), the mix's p50/p99 with the clients in this
+             process and the wire-chaos cells on one rank (torn header,
+             stalled payload, RST mid-payload, slow drip, disconnect
+             mid-response, connect-then-silence, each followed by the
+             four recovery checks), the watchdog cell on eight ranks, the
+             hedging cell, kill and resume (int32 2^24 against 2^25
+             bytes), and the sentinel cells; each leg's solo int32 2^26
+             request asserts its kernels in the server through ``/varz``
+             (K1 on one rank, K6 and K7 on eight, K1 for the spill chunk
+             sorts).
+             (o) ``parallel.multihost_init`` over NCCL in a subprocess
+             (``multihost_phase``): one process, one ``all_reduce``, then
+             ``sort()`` of int32 2^28 on ``make_mesh(1)`` (K1) and
+             ``make_mesh(8)`` (K6, K7), bytes equal to ``torch.sort``,
+             ``destroy_process_group()`` in a ``finally``.
              Every clean phase (1-4) asserts that no Tracer it created
              holds a fault or ladder counter (``LADDER_COUNTERS``).
              Every output equals its oracle (np.sort, or torch.sort on the
@@ -232,8 +254,9 @@ Phases, each failing loudly (any exception exits non-zero):
              beside the clean wall, the descent's rungs); phase 3l's walls,
              regrets and mix ratio; phase 3i's notes (record sort
              Mkeys/s, ingest stage seconds and overlap, donation memory),
-             its wall, phase 3j's notes and wall, phase 3m's wall, and
-             the smoke's total wall.
+             its wall, phase 3j's notes and wall, phase 3m's, 3n's (with
+             the spawned mix's p50/p99) and 3o's walls, and the smoke's
+             total wall.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -299,19 +322,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-@contextlib.contextmanager
-def env(**values: str):
-    """Set environment knobs for a block, restoring them after."""
-    old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
-    try:
-        yield
-    finally:
-        for k, v in old.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+def env(**values: str | None):
+    """Knobs set (``None``: unset) for a block: the port's
+    ``knobs.scoped_env``, imported at the call so that the script alone
+    still reaches its CUDA check."""
+    from mpitest_tpu_torch.utils.knobs import scoped_env
+
+    return scoped_env(**values)
 
 
 #: Counters a clean run never sets: a fault fired, a dispatch retried, a
@@ -1323,6 +1340,137 @@ def serve_phase(mesh_for, sizes: dict, log, *, card: bool,
     return legs, fault_tracers, timings
 
 
+#: Phase 3n's sizes on the card: one solo int32 request a leg (2^26, the
+#: largest the default ``SORT_SERVE_MAX_BYTES`` admits), the closed-loop
+#: mix of 2^7-2^10 keys, the RST and drip cells' request, and the kill
+#: drill's spill request against its byte bound (as phase 3m's).
+SPAWNED_SIZES = {"solo": 1 << 26, "mix_requests": 160, "clients": 8,
+                 "big": 1 << 16, "spill": 1 << 24, "spill_bytes": 1 << 25}
+
+
+def spawned_phase(sizes: dict, log, *, card: bool, mesh_for,
+                  cmd: "tuple[str, ...] | None" = None) -> dict:
+    """Phase 3n: the reference's spawned-server gates
+    (``mpitest_tpu_torch/selftest/drills.py``) against the port's server
+    running as its own process (``cmd``, default ``python -m
+    mpitest_tpu_torch.sort_server``), driven only through the wire and the
+    side port: the live-telemetry leg (eight ranks), the mix and the wire
+    chaos cells (one rank), the watchdog (eight ranks) and hedging (one
+    rank) cells, kill and resume, and the sentinel cells.  Every leg's
+    solo request asserts its kernels in the server process through
+    ``/varz`` when ``card``.  Returns each leg's timings and the phase
+    wall."""
+    from pathlib import Path
+
+    from mpitest_tpu_torch.selftest import drills
+    from mpitest_tpu_torch.selftest.spawned import DRIVER
+
+    cmd = cmd or DRIVER
+    out: dict = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tdir:
+        root = Path(tdir)
+        for name, leg in (("telemetry", drills.telemetry_leg), ("wire", drills.wire_leg),
+                          ("watchdog", drills.watchdog_leg), ("hedging", drills.hedging_leg),
+                          ("kill_resume", drills.kill_resume_leg)):
+            t0 = time.perf_counter()
+            kw = {"mesh_for": mesh_for} if name == "telemetry" else {}
+            out[name] = leg(root / name, sizes, log, card=card, cmd=cmd, **kw)
+            out[name]["wall_s"] = time.perf_counter() - t0
+            log(f"[3n] {name} leg: {out[name]['wall_s']:.3f} s, server start "
+                f"{out[name].get('start_s', out[name].get('start1_s', 0.0)):.3f} s, "
+                f"server launches {out[name].get('launches', out[name].get('launches1'))}")
+        out["sentinel"] = drills.sentinel_cells(root / "sentinel", log)
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+#: Phase 3o's sort size: int32 2^28, the main path's.
+MULTIHOST_N = 1 << 28
+
+_MULTIHOST_CHILD = """
+import json, sys, time
+import numpy as np
+import torch, torch.distributed as dist
+import mpitest_tpu_torch as mt
+from mpitest_tpu_torch.ops import _build
+from mpitest_tpu_torch.parallel import make_mesh, multihost_init
+port, n = int(sys.argv[1]), int(sys.argv[2])
+t0 = time.perf_counter()
+multihost_init(f"127.0.0.1:{port}", 1, 0)
+out = {"init_s": time.perf_counter() - t0}
+try:
+    assert dist.get_backend() == "nccl", dist.get_backend()
+    assert dist.get_world_size() == 1 and dist.get_rank() == 0
+    t0 = time.perf_counter()
+    t = torch.arange(1024, dtype=torch.float32, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    assert torch.equal(t, torch.arange(1024, dtype=torch.float32, device="cuda"))
+    out["all_reduce_s"] = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device="cuda",
+                      generator=g)
+    want = torch.sort(x).values.cpu().numpy()
+    for ranks, must in ((1, ["bitonic_u32"]), (8, ["fused_pass_pack", "remote_a2a"])):
+        mesh = make_mesh(ranks)
+        assert mesh.size == ranks
+        for rep in range(2):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = mt.sort(x, "radix", mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        got = np.asarray(got)
+        assert got.dtype == want.dtype and np.array_equal(got.view(np.uint8),
+                                                          want.view(np.uint8)), ranks
+        for k in must:
+            assert launches.get(k, 0) > 0, (ranks, k, launches)
+        # host wall of the second call, the result's copy back included
+        out[f"ranks{ranks}"] = {"warm_s": wall, "launches": launches}
+finally:
+    dist.destroy_process_group()
+print("MULTIHOST " + json.dumps(out))
+"""
+
+
+def multihost_phase(n: int, log, attempts: int = 3) -> dict:
+    """Phase 3o: ``parallel.multihost_init`` on the card, in a subprocess
+    of the smoke: NCCL at one process on a free port (a port taken between
+    the probe and the bind is retried, nothing else is), one
+    ``all_reduce``, then ``sort()`` of int32 ``n`` on ``make_mesh(1)`` (K1)
+    and ``make_mesh(8)`` with radix (K6, K7), bytes equal to
+    ``torch.sort``, launches asserted, and
+    ``destroy_process_group()`` in a ``finally``.  Returns the child's
+    timings and launches."""
+    import socket
+
+    for attempt in range(attempts):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _MULTIHOST_CHILD, str(port), str(n)],
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode == 0:
+            line = next(ln for ln in proc.stdout.splitlines()
+                        if ln.startswith("MULTIHOST "))
+            res = json.loads(line.split(" ", 1)[1])
+            res["wall_s"] = wall
+            log(f"[3o] multihost_init over NCCL: init {res['init_s']:.3f} s, all_reduce "
+                f"{res['all_reduce_s']:.3f} s; sort(int32 2^{n.bit_length() - 1}) "
+                f"one rank {res['ranks1']['warm_s']:.3f} s {res['ranks1']['launches']}, "
+                f"eight ranks {res['ranks8']['warm_s']:.3f} s "
+                f"{res['ranks8']['launches']}; subprocess {wall:.3f} s")
+            return res
+        if "address already in use" not in proc.stderr.lower() or attempt == attempts - 1:
+            raise AssertionError(f"3o: the multihost child failed (rc {proc.returncode}):\n"
+                                 f"{proc.stderr[-3000:]}")
+    raise AssertionError("3o: unreachable")
+
+
 def main() -> int:
     import torch
 
@@ -2012,14 +2160,15 @@ def main() -> int:
             f"wall {ext_walls[label]:.3f} s")
 
     def external_k8_path() -> None:
-        # 2^23 (cut from 2^24, whose host-bound merge took 163 s): the same
-        # six passes at fan-in 4, half the rounds
-        x = int32_keys(1 << 23)
-        k8_leg("external_sort(np int32 2^23, budget 98304, fan-in 4)", x, 98304,
-               1366, 6)
-        x = rng.integers(-(2**63), 2**63 - 1, 1 << 22, dtype=np.int64)
-        k8_leg("external_sort(np int64 2^22, budget 196608, fan-in 4)", x, 196608,
+        # int32 2^22 and int64 2^21 (cut from 2^24 / 2^23 and 2^22, whose
+        # host-bound merges took 163 / 67 and 47 s): five passes at fan-in
+        # 4 each, every round size of 2..4096 still reached
+        x = int32_keys(1 << 22)
+        k8_leg("external_sort(np int32 2^22, budget 98304, fan-in 4)", x, 98304,
                683, 5)
+        x = rng.integers(-(2**63), 2**63 - 1, 1 << 21, dtype=np.int64)
+        k8_leg("external_sort(np int64 2^21, budget 196608, fan-in 4)", x, 196608,
+               342, 5)
 
     def cli_external_path() -> None:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2588,6 +2737,21 @@ def main() -> int:
     log(f"[main] phase 3m (the server) wall {serve_timings['phase_wall_s']:.3f} s, "
         f"launches {serve_launches}")
 
+    # ----------------------------------- 3n. the spawned-server drills on the card
+    torch.cuda.empty_cache()   # the server processes allocate on the same card
+    spawned = spawned_phase(SPAWNED_SIZES, log, card=True, mesh_for=make_mesh)
+    assert_clean("3n")
+    log(f"[spawned] timings {json.dumps(spawned, sort_keys=True, default=str)} "
+        f"| card {card}")
+    log(f"[main] phase 3n (the spawned-server drills) wall "
+        f"{spawned['phase_wall_s']:.3f} s")
+
+    # ------------------------------ 3o. multihost_init over NCCL on the card
+    t_mh = time.perf_counter()
+    multihost = multihost_phase(MULTIHOST_N, log)
+    multihost_wall = time.perf_counter() - t_mh
+    log(f"[main] phase 3o (multihost_init) wall {multihost_wall:.3f} s")
+
     # ---------------------------------------------------------- 4. timing
     entries = []
 
@@ -2926,6 +3090,12 @@ def main() -> int:
         log(f"[timing] planner: {note} | card {card}")
     log(f"[timing] phase 3l wall {planner_wall:.3f} s | card {card}")
     log(f"[timing] phase 3m wall {serve_timings['phase_wall_s']:.3f} s | card {card}")
+    log(f"[timing] phase 3n wall {spawned['phase_wall_s']:.3f} s (spawned mix p50 "
+        f"{spawned['wire']['p50_ms']:.3f} ms, p99 {spawned['wire']['p99_ms']:.3f} ms) "
+        f"| card {card}")
+    log(f"[timing] phase 3o wall {multihost_wall:.3f} s (one rank "
+        f"{multihost['ranks1']['warm_s']:.3f} s, eight ranks "
+        f"{multihost['ranks8']['warm_s']:.3f} s) | card {card}")
     for note in slice_notes:
         log(f"[timing] {note} | card {card}")
     for note in tele_notes:

@@ -10,6 +10,16 @@ missing ``nvcc`` raises too; a refused launch raises
 :class:`KernelLaunchError`.  Nothing here falls back to another
 implementation.
 
+Every build is bounded: an ``nvcc`` that runs past :data:`BUILD_TIMEOUT_S`
+is killed, its partial output removed, and the build raises
+:class:`KernelBuildTimeout` (a :class:`KernelBuildError`) naming the
+source and the bound.  This is the counterpart of the reference's bounded
+topology probe (``utils/topology_probe.py``): a compiler that never
+answers fails the caller instead of wedging it.  :func:`load` holds the
+module lock only to look up and publish libraries, never across a build:
+loaders of different sources build in parallel, and a second loader of a
+source waits for the first one's result.
+
 Every wrapper launches through :func:`launch`, which counts each kernel
 entry it calls in :data:`LAUNCHES` (one table for every source, so one
 reset and one read cover a whole run).
@@ -21,8 +31,10 @@ import ctypes
 import hashlib
 import os
 import shutil
+import signal
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -33,8 +45,30 @@ NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+#: Seconds one ``nvcc`` may run before its build is abandoned: many times
+#: the cold build of all four sources, started together, on the H100
+#: machine (both numbers in ``PERF.md`` §5), so a healthy build never
+#: meets it; it only ends a compiler that does not answer.
+BUILD_TIMEOUT_S = 600.0
+
+#: Seconds to wait for a killed nvcc to be reaped.
+_REAP_S = 5.0
+
+#: Guards :data:`_loaded` and :data:`_pending`; never held across a build.
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+class _Pending:
+    """One source's build in flight: later loaders wait on ``done`` and
+    take ``error`` (None on success) as their result."""
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.error: BaseException | None = None
+
+
+_pending: dict[str, _Pending] = {}
 
 #: Kernel launches per C entry point since the last :func:`reset_launches`;
 #: each wrapper module registers its entries here.
@@ -43,6 +77,10 @@ LAUNCHES: dict[str, int] = {}
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a kernel source."""
+
+
+class KernelBuildTimeout(KernelBuildError):
+    """nvcc did not finish within :data:`BUILD_TIMEOUT_S` and was killed."""
 
 
 class KernelLaunchError(RuntimeError):
@@ -66,23 +104,63 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> tuple[Path, subprocess.Popen[bytes] | None]:
-    """Start nvcc for ``name`` unless its library is already built."""
+def _tmp(lib: Path) -> Path:
+    # one partial output per process and thread: two threads may build
+    # the same source, and the atomic rename publishes whichever ends
+    return lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+
+
+def _start(name: str) -> tuple[Path, subprocess.Popen[bytes] | None, float]:
+    """Start nvcc for ``name`` unless its library is already built;
+    returns the library, the process and its start time."""
     src, lib = _target(name)
     if lib.exists():
-        return lib, None
+        return lib, None, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(_tmp(lib)), str(src)]
+    # a session of its own, so that a kill reaches every compiler stage
+    # nvcc starts, not nvcc alone
     return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE)
+                                 stderr=subprocess.PIPE,
+                                 start_new_session=True), time.monotonic()
 
 
-def _finish(name: str, lib: Path, proc: subprocess.Popen[bytes] | None) -> None:
+def _abandon(lib: Path, proc: subprocess.Popen[bytes]) -> None:
+    """Kill an unfinished nvcc and remove its partial output.
+
+    The kill goes to nvcc's whole process group: its stages (cudafe++,
+    cicc, ptxas, the host compiler) inherit its pipes, and one that kept
+    running would hold them open, so nothing here reads them to their
+    end; the wait for nvcc is bounded too."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    try:
+        proc.wait(timeout=_REAP_S)
+    except subprocess.TimeoutExpired:
+        pass
+    for pipe in (proc.stdout, proc.stderr):
+        if pipe is not None:
+            pipe.close()
+    _tmp(lib).unlink(missing_ok=True)
+
+
+def _finish(name: str, lib: Path, proc: subprocess.Popen[bytes] | None,
+            t0: float) -> None:
+    """Wait for nvcc at most until ``t0 + BUILD_TIMEOUT_S``, then publish
+    the library or raise."""
     if proc is None:
         return
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    _, err = proc.communicate()
+    tmp = _tmp(lib)
+    try:
+        _, err = proc.communicate(
+            timeout=max(0.0, t0 + BUILD_TIMEOUT_S - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        _abandon(lib, proc)
+        raise KernelBuildTimeout(
+            f"nvcc on csrc/{name}.cu did not finish within the "
+            f"{BUILD_TIMEOUT_S:g} s build bound; killed") from None
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelBuildError(
@@ -92,20 +170,65 @@ def _finish(name: str, lib: Path, proc: subprocess.Popen[bytes] | None) -> None:
 
 
 def build(*names: str) -> dict[str, Path]:
-    """Build the named sources, all nvcc processes started together;
-    returns each library's path."""
-    started = [(n, *_start(n)) for n in names]
-    for n, lib, proc in started:
-        _finish(n, lib, proc)
-    return {n: lib for n, lib, _ in started}
+    """Build the named sources, all nvcc processes started together, each
+    bounded by :data:`BUILD_TIMEOUT_S`; returns each library's path.  A
+    failure kills the builds still running before it raises."""
+    started: list[tuple[str, Path, subprocess.Popen[bytes] | None, float]] = []
+    try:
+        for n in names:
+            started.append((n, *_start(n)))
+        for i, (n, lib, proc, t0) in enumerate(started):
+            _finish(n, lib, proc, t0)
+            started[i] = (n, lib, None, t0)
+    finally:
+        for _n, lib, proc, _t0 in started:
+            if proc is not None and proc.returncode is None:
+                _abandon(lib, proc)
+    return {n: lib for n, lib, _, _ in started}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use.
+
+    The lock covers the lookups only: the first loader of a source builds
+    it outside the lock, a concurrent loader of the same source waits for
+    that result (a failure raises in both), and loaders of other sources
+    go ahead.  A failed or timed-out build is not remembered, so a later
+    call builds again."""
     with _lock:
-        if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(build(name)[name]))
-        return _loaded[name]
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        pending = _pending.get(name)
+        owner = pending is None
+        if owner:
+            pending = _pending[name] = _Pending()
+    assert pending is not None
+    if not owner:
+        # the owner's own build is bounded; the grace covers its dlopen
+        if not pending.done.wait(BUILD_TIMEOUT_S + 60.0):
+            raise KernelBuildTimeout(
+                f"csrc/{name}.cu: another thread's build did not finish "
+                f"within the {BUILD_TIMEOUT_S:g} s build bound")
+        err = pending.error
+        if err is not None:
+            cls = type(err) if isinstance(err, KernelBuildError) else KernelBuildError
+            raise cls(str(err)) from err
+        with _lock:
+            return _loaded[name]
+    try:
+        lib = ctypes.CDLL(str(build(name)[name]))
+    except BaseException as e:
+        pending.error = e
+        raise
+    else:
+        with _lock:
+            _loaded[name] = lib
+        return lib
+    finally:
+        with _lock:
+            del _pending[name]
+        pending.done.set()
 
 
 def typed(name: str, signatures: dict[str, tuple[type, ...]]) -> ctypes.CDLL:

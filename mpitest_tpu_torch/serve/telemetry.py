@@ -10,7 +10,8 @@ server (``SORT_METRICS_PORT``) exposes
   draining or while the circuit breaker is open;
 * ``GET /varz`` — configuration + internal state: every explicitly-set
   knob, the mesh, executor-cache/admission/batcher/flight-recorder
-  state, the plan snapshot, the planner and the profiler;
+  state, the plan snapshot, the planner, the profiler and the kernel
+  launch counts of the process (``kernels.launches``);
 * ``GET /alerts`` — the sentinel's alert history and series;
 * ``GET /flightrecorder`` — the in-memory span ring as span-schema
   JSONL (``?dump=1`` also writes a timestamped artifact to
@@ -178,6 +179,13 @@ def _set_knobs() -> dict[str, str]:
     return out
 
 
+def _kernel_launches() -> dict[str, int]:
+    """``ops/_build.LAUNCHES`` (a copy; the counts are plain ints)."""
+    from mpitest_tpu_torch.ops import _build
+
+    return dict(_build.LAUNCHES)
+
+
 class _Handler(BaseHTTPRequestHandler):
     server: "TelemetryServer"  # type: ignore[assignment]
 
@@ -284,6 +292,9 @@ class _Handler(BaseHTTPRequestHandler):
                 "window_retunes": core.batcher.window_retunes,
             },
             "profiler": core.profiler.state(),
+            # kernel launches of this process, so a caller in another
+            # process can see which kernels its requests ran
+            "kernels": {"launches": _kernel_launches()},
             "requests": {"ok": core.requests_ok,
                          "err": core.requests_err},
             "uptime_s": round(time.time() - core.started, 3),

@@ -63,9 +63,13 @@ DEFAULT_BLOCK_ELEMS = 4096
 _LOADED = False
 _LIB: ctypes.CDLL | None = None
 _LIB_ERR: str | None = None
-#: guards the one-time build and load: concurrent first users (spill
-#: writers, a read-ahead thread) all see the completed verdict
+#: guards the one-time load and its verdict: concurrent first users
+#: (spill writers, a read-ahead thread) all see the completed verdict.
+#: The ``cc`` build runs before it, never under it.
 _LOAD_LOCK = threading.Lock()
+#: Seconds ``cc`` may take on ``native/spillz.c`` (it takes well under a
+#: second); past it the build is killed and the codec counts as missing.
+CC_TIMEOUT_S = 120.0
 
 
 def lib_path() -> Path:
@@ -99,9 +103,16 @@ def _build(path: Path) -> str | None:
     if cc is None:
         return "no C compiler (cc) to build native/spillz.c"
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([cc, *_FLAGS, f"-I{SOURCE.parent}", str(SOURCE),
-                        "-o", str(tmp)], capture_output=True, text=True)
+    # one partial output per thread: concurrent first users may all build
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        r = subprocess.run([cc, *_FLAGS, f"-I{SOURCE.parent}", str(SOURCE),
+                            "-o", str(tmp)], capture_output=True, text=True,
+                           timeout=CC_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        tmp.unlink(missing_ok=True)
+        return (f"cc on native/spillz.c did not finish within "
+                f"{CC_TIMEOUT_S:g} s")
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
         return f"cc failed on native/spillz.c: {r.stderr.strip()[:500]}"
@@ -115,12 +126,15 @@ def _load() -> ctypes.CDLL | None:
     global _LOADED, _LIB, _LIB_ERR
     if _LOADED:
         return _LIB
+    path = lib_path()
+    # the bounded build runs outside the lock, so a slow compiler never
+    # holds up a thread that only waits for the verdict
+    built_err = None if path.exists() else _build(path)
     with _LOAD_LOCK:
         if _LOADED:
             return _LIB
         lib: ctypes.CDLL | None = None
-        path = lib_path()
-        err = None if path.exists() else _build(path)
+        err = built_err
         if err is None:
             try:
                 lib = ctypes.CDLL(str(path))

@@ -28,7 +28,7 @@ BIN_MAGIC = b"SORTBIN1"
 BIN_HEADER_LEN = 16
 
 #: Default keys per parsed text chunk (``SORT_INGEST_CHUNK``).
-DEFAULT_CHUNK_ELEMS = 1 << 22
+DEFAULT_CHUNK_ELEMS = knobs.DEFAULT_INGEST_CHUNK
 
 #: Text-chunk byte budget per key: sign + 10 digits + newline for int32.
 _TEXT_BYTES_PER_KEY = 12

@@ -41,7 +41,10 @@ def test_import_pulls_in_no_jax():
             "mpitest_tpu_torch.serve.batching, mpitest_tpu_torch.serve.client, "
             "mpitest_tpu_torch.serve.executor_cache, mpitest_tpu_torch.serve.watchdog, "
             "mpitest_tpu_torch.serve.sentinel, mpitest_tpu_torch.serve.telemetry, "
-            "mpitest_tpu_torch.serve.server, mpitest_tpu_torch.sort_server\n"
+            "mpitest_tpu_torch.serve.server, mpitest_tpu_torch.sort_server, "
+            "mpitest_tpu_torch.utils.thread_registry, mpitest_tpu_torch.selftest, "
+            "mpitest_tpu_torch.selftest.wire_chaos, mpitest_tpu_torch.selftest.spawned, "
+            "mpitest_tpu_torch.selftest.drills\n"
             "from mpitest_tpu_torch.store.runs import InputStage, run_body_views\n"
             "mpitest_tpu_torch.external_sort\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -89,7 +92,11 @@ def test_no_source_imports_jax_or_reference():
             "mpitest_tpu_torch/serve/sentinel.py",
             "mpitest_tpu_torch/serve/telemetry.py",
             "mpitest_tpu_torch/serve/server.py",
-            "mpitest_tpu_torch/sort_server.py"} <= names
+            "mpitest_tpu_torch/sort_server.py",
+            "mpitest_tpu_torch/utils/thread_registry.py",
+            "mpitest_tpu_torch/selftest/wire_chaos.py",
+            "mpitest_tpu_torch/selftest/spawned.py",
+            "mpitest_tpu_torch/selftest/drills.py"} <= names
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
@@ -97,7 +104,8 @@ def test_no_source_imports_jax_or_reference():
 
 @pytest.mark.parametrize("rel", ["mpitest_tpu_torch/models/plan.py",
                                  "mpitest_tpu_torch/models/planner.py",
-                                 "mpitest_tpu_torch/doctor.py"])
+                                 "mpitest_tpu_torch/doctor.py",
+                                 "mpitest_tpu_torch/utils/thread_registry.py"])
 def test_vocabulary_modules_load_standalone_on_the_stdlib(rel):
     """plan.py, planner.py and doctor.py load by file path, with no
     package context, and import neither torch nor numpy (as in the
