@@ -218,6 +218,22 @@ Phases, each failing loudly (any exception exits non-zero):
              ``sort()`` of int32 2^28 on ``make_mesh(1)`` (K1) and
              ``make_mesh(8)`` (K6, K7), bytes equal to ``torch.sort``,
              ``destroy_process_group()`` in a ``finally``.
+             (p) the radix sort across two processes on the one card
+             (``crossprocess_phase``): the single-controller sort of the
+             same host keys first (``make_mesh(P)``, its counters and
+             warm wall), then two children join a gloo group
+             (``multihost_init``; NCCL refuses two ranks on one GPU) and
+             sort on the global mesh: 2 x 4 ranks of int32 2^28 (phase
+             4's eight-rank shape) and 2 x 1 of int64 2^26.  Each child
+             holds its shards to ``torch.sort``, the combined
+             ``Fingerprint`` to the input's, the median probe across
+             processes and to the oracle, the exchange counters to the
+             single-controller run's, K6 and K7 in its own launches,
+             ``to_numpy`` and ``algorithm="sample"`` to ``RuntimeError``,
+             and K7 across processes (CUDA IPC) byte-equal to the
+             host-staged transport; it prints the walls beside the
+             single-controller's, the control-group seconds, the handle
+             mapping, the barrier waits and K7's device ms.
              Every clean phase (1-4) asserts that no Tracer it created
              holds a fault or ladder counter (``LADDER_COUNTERS``).
              Every output equals its oracle (np.sort, or torch.sort on the
@@ -255,8 +271,9 @@ Phases, each failing loudly (any exception exits non-zero):
              regrets and mix ratio; phase 3i's notes (record sort
              Mkeys/s, ingest stage seconds and overlap, donation memory),
              its wall, phase 3j's notes and wall, phase 3m's, 3n's (with
-             the spawned mix's p50/p99) and 3o's walls, and the smoke's
-             total wall.
+             the spawned mix's p50/p99), 3o's and 3p's walls (3p's
+             cross-process walls beside the single-controller ones, and
+             K7 across processes), and the smoke's total wall.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -267,6 +284,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import os
@@ -1469,6 +1487,311 @@ def multihost_phase(n: int, log, attempts: int = 3) -> dict:
             raise AssertionError(f"3o: the multihost child failed (rc {proc.returncode}):\n"
                                  f"{proc.stderr[-3000:]}")
     raise AssertionError("3o: unreachable")
+
+
+#: Phase 3p's legs: (label, kind, ranks per process, keys, seed).  Two
+#: processes share the card; the first leg is phase 4's eight-rank shape,
+#: the last sorted keys that take the skew re-stage.
+CROSSPROCESS_LEGS = (("2x4 int32", "int32", 4, 1 << 28, 41),
+                     ("2x1 int64", "int64", 1, 1 << 26, 42),
+                     ("2x4 int32 sorted", "sorted", 4, 1 << 28, 43))
+
+
+def crossprocess_keys(kind: str, n: int, seed: int):
+    """Phase 3p's host keys: uniform int32 or int64, or nondecreasing
+    int32 below 2^16 (``sorted``: one radix pass, whose digit keeps every
+    rank's keys on that rank, so the count probe asks for the re-stage)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if kind == "sorted":
+        steps = np.cumsum(rng.integers(0, 2, n, dtype=np.int8), dtype=np.int32)
+        return steps >> max(0, n.bit_length() - 17)
+    info = np.iinfo(np.dtype(kind))
+    return rng.integers(info.min, info.max, n, dtype=np.dtype(kind), endpoint=True)
+
+
+def crossprocess_stats(spans_) -> dict:
+    """Phase 3p's readings from a run's span log, summed over the attrs
+    that the exchange layer adds to its enclosing spans: control-group
+    rounds and seconds, handle opens, the syncs and barriers around the
+    pushes, and K7's device time across processes."""
+    def total(key):
+        return sum(s.attrs.get(key, 0) for s in spans_)
+    return {"control_s": total("control_s"), "control_calls": total("control_rounds"),
+            "open_s": total("ipc_open_s"), "barrier_s": total("ipc_wait_s"),
+            "k7_ms": total("k7_device_ms"), "exchanges": total("k7_exchanges")}
+
+
+def crossprocess_k7_under_restage(spans_) -> int:
+    """The cross-process K7 exchanges that ran inside the skew re-stage
+    (on the ``restage`` span or one nested in it)."""
+    by_id = {s.id: s for s in spans_}
+
+    def inside(s):
+        while s is not None:
+            if s.name == "restage":
+                return True
+            s = by_id.get(s.parent)
+        return False
+    return sum(s.attrs.get("k7_exchanges", 0) for s in spans_ if inside(s))
+
+
+_CROSSPROCESS_CHILD = """
+import json, statistics, sys, time
+import numpy as np
+import torch, torch.distributed as dist
+import mpitest_tpu_torch as mt
+from mpitest_tpu_torch.models import verify as vfy
+from mpitest_tpu_torch.ops import _build, exchange
+from mpitest_tpu_torch.ops.keys import codec_for
+from mpitest_tpu_torch.parallel import make_mesh, multihost_init
+from mpitest_tpu_torch.parallel import mesh as mesh_mod
+from mpitest_tpu_torch.utils.trace import Tracer
+
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+legs, expect, reps = json.loads(sys.argv[3]), json.loads(sys.argv[4]), int(sys.argv[5])
+t0 = time.perf_counter()
+multihost_init(f"127.0.0.1:{port}", 2, rank)
+out = {"init_s": time.perf_counter() - t0, "backend": dist.get_backend(), "legs": {}}
+COUNTERS = ("exchange_passes", "exchange_bytes", "exchange_cap", "digit_bits",
+            "skew_restage")
+""" + "\n".join(inspect.getsource(f) for f in (
+    crossprocess_keys, crossprocess_stats, crossprocess_k7_under_restage)) + """
+
+try:
+    # two processes on one card: the default group is gloo, and so is the
+    # control group (NCCL refuses two ranks on one GPU)
+    assert dist.get_backend() == "gloo" and dist.get_world_size() == 2, dist.get_backend()
+    mesh = None
+    for label, kind, local, n, seed in legs:
+        x = crossprocess_keys(kind, n, seed)
+        mesh = make_mesh(devices=["cuda"] * local)
+        assert mesh.cross_process and mesh.size == 2 * local, mesh
+        assert mesh.local_ranks == tuple(range(rank * local, (rank + 1) * local)), mesh
+        codec = codec_for(x.dtype)
+        fp_in = vfy.fingerprint_host(codec.encode(x))
+        want = torch.sort(torch.from_numpy(x).cuda()).values
+        walls = []
+        for rep in range(reps):
+            _build.reset_launches()
+            tr = Tracer()
+            torch.cuda.synchronize()
+            mesh_mod.barrier()
+            t = time.perf_counter()
+            res = mt.sort(x, mesh=mesh, return_result=True, tracer=tr)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            stats = crossprocess_stats(tr.spans.spans)
+            if rep == 0:
+                cold = {"wall_s": walls[0], "open_s": stats["open_s"]}
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        for k in ("fused_pass_pack", "remote_a2a"):
+            assert launches.get(k, 0) > 0, (label, k, launches)
+        restage_k7 = crossprocess_k7_under_restage(tr.spans.spans)
+        if kind == "sorted":
+            # the re-stage's all-to-all is K7 into the peer's buffers
+            assert tr.counters.get("skew_restage") == 1 and restage_k7 == 1, (
+                label, tr.counters.get("skew_restage"), restage_k7)
+        # local shards against the matching slices of torch.sort
+        for (r, a, b), shard in zip(res.addressable, res.shards):
+            ref = codec.encode_torch(want[a:b])
+            assert all(torch.equal(g, w) for g, w in zip(shard, ref)), (label, r)
+        fp_out = vfy.result_fingerprint(res)
+        assert fp_out == fp_in, (label, fp_out, fp_in)
+        med = res.median_probe()
+        oracle = int(want[n // 2 - 1])
+        meds = mesh_mod.gather_objects(med)
+        assert meds[0] == meds[1] == oracle, (label, meds, oracle)
+        got = {c: tr.counters.get(c, 0) for c in COUNTERS}
+        assert got == expect[label], (label, got, expect[label])
+        for what in ("to_numpy", "sample"):
+            try:
+                res.to_numpy() if what == "to_numpy" else mt.sort(
+                    x[:1 << 16], algorithm="sample", mesh=mesh, return_result=True)
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError(f"{label}: {what} did not raise across processes")
+        out["legs"][label] = {"walls_s": walls, "cold": cold, "launches": launches,
+                              "counters": got, "median": med, "restage_k7": restage_k7,
+                              **stats}
+        del res, want
+        torch.cuda.empty_cache()
+    # K7 across processes against the host-staged transport of the same send
+    # matrices, byte for byte, at the first leg's shape; then K7 alone: CUDA
+    # events around each process's pushes, and one host window from the
+    # first process's launch to the last process's completion (the shared
+    # host clock; both processes leave a barrier just before)
+    label, kind, local, n, seed = legs[0]
+    mesh = make_mesh(devices=["cuda"] * local)
+    cap = expect[label]["exchange_cap"]
+    g = torch.Generator(device="cuda").manual_seed(500 + rank)
+    sends = [(torch.randint(-2**31, 2**31 - 1, (mesh.size, cap), dtype=torch.int32,
+                            device="cuda", generator=g),) for _ in mesh.local_ranks]
+    got = [tuple(p.clone() for p in planes) for planes in exchange.remote_a2a_across(sends, mesh)]
+    staged = exchange.staged_a2a(sends, mesh)
+    for a, b in zip(got, staged):
+        assert all(torch.equal(p, q) for p, q in zip(a, b)), "K7 across != staged"
+    table, _ = exchange._arena.layout(1, cap)
+    lib = exchange.lib()
+    k7, windows = [], []
+    for _ in range(5):
+        tr = Tracer()
+        with tr.span("k7_probe"):
+            exchange.remote_a2a_across(sends, mesh)
+        k7.append(crossprocess_stats(tr.spans.spans)["k7_ms"])
+        torch.cuda.synchronize()
+        mesh_mod.barrier()
+        t_launch = time.time()
+        for i, me in enumerate(mesh.local_ranks):
+            _build.launch(lib, "remote_a2a", sends[i][0].device, sends[i][0].data_ptr(),
+                          table[0].data_ptr(), me, mesh.size, cap)
+        torch.cuda.synchronize()
+        t_done = time.time()
+        ends = mesh_mod.gather_objects((t_launch, t_done))
+        mesh_mod.barrier()
+        windows.append(1e3 * (max(e for _, e in ends) - min(s for s, _ in ends)))
+    out["k7"] = {"cap": cap, "ms": k7, "window_ms": windows, "bytes_equal": True}
+    exchange.release_ipc()
+finally:
+    dist.destroy_process_group()
+print("CROSSPROCESS " + json.dumps(out))
+"""
+
+
+def crossprocess_phase(log, legs=CROSSPROCESS_LEGS, reps: int = 2,
+                       attempts: int = 3) -> dict:
+    """Phase 3p: the radix sort across two processes on the one card.
+
+    First the single-controller sort of each leg's host keys in this
+    process (``make_mesh(P)``, the same call twice: its exchange counters
+    and its warm wall), and the in-process K7 at the first leg's exchange
+    shape (CUDA events, and the host window from launch to completion).
+    Then two child processes join a group on a free port
+    (``multihost_init``: gloo, the processes share the card), build the
+    global mesh of each leg (``make_mesh(devices=["cuda"] * k)`` in each)
+    and run ``sort(x, return_result=True)`` on it ``reps`` times.  Each
+    child asserts its local shards against ``torch.sort`` of the same
+    keys, the combined ``Fingerprint`` against the input's, the median
+    probe across processes and against the oracle, the exchange counters
+    (the re-stage's included) against the single-controller run's, K6 and
+    K7 in its own launch counts, the sorted leg's re-stage moved by K7
+    across processes, ``to_numpy`` and ``algorithm="sample"`` raising,
+    and K7 across processes byte-equal to the host-staged transport.
+    Every child ends its group in a ``finally``.  Returns this process's
+    walls and counters beside each child's result."""
+    import socket
+
+    import torch
+
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch.ops import exchange
+    from mpitest_tpu_torch.parallel.mesh import make_mesh
+    from mpitest_tpu_torch.utils.trace import Tracer
+
+    t_phase = time.perf_counter()
+    single: dict = {}
+    for label, kind, local, n, seed in legs:
+        x = crossprocess_keys(kind, n, seed)
+        mesh = make_mesh(2 * local)
+        walls = []
+        for _ in range(reps):
+            tr = Tracer()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = mt.sort(x, mesh=mesh, return_result=True, tracer=tr)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        single[label] = {"walls_s": walls, "counters": {
+            c: tr.counters.get(c, 0) for c in ("exchange_passes", "exchange_bytes",
+                                               "exchange_cap", "digit_bits",
+                                               "skew_restage")}}
+        del res, x
+    # the in-process K7 at the first leg's shape, timed as the children time
+    # theirs: eight pushes of [8, cap], events and host window
+    cap = single[legs[0][0]]["counters"]["exchange_cap"]
+    p = 2 * legs[0][2]
+    g = torch.Generator(device="cuda").manual_seed(500)
+    sends = [torch.randint(-2**31, 2**31 - 1, (p, cap), dtype=torch.int32,
+                           device="cuda", generator=g) for _ in range(p)]
+    exchange.remote_a2a(sends)
+    in_ms, in_windows = [], []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        start.record()
+        exchange.remote_a2a(sends)
+        end.record()
+        torch.cuda.synchronize()
+        in_windows.append(1e3 * (time.time() - t0))
+        in_ms.append(start.elapsed_time(end))
+    in_process = {"ms": in_ms, "window_ms": in_windows}
+    del sends
+    torch.cuda.empty_cache()   # the children allocate on the same card
+    expect = {label: v["counters"] for label, v in single.items()}
+    child_src = _CROSSPROCESS_CHILD
+    for attempt in range(attempts):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        argv = [json.dumps(legs), json.dumps(expect), str(reps)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", child_src, str(r),
+                                   str(port), *argv],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=600))
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        if all(proc.returncode == 0 for proc in procs):
+            children = [json.loads(next(ln for ln in o.splitlines()
+                                        if ln.startswith("CROSSPROCESS ")).split(" ", 1)[1])
+                        for o, _e in outs]
+            for label, *_ in legs:
+                w_single = min(single[label]["walls_s"])
+                w_cross = max(min(c["legs"][label]["walls_s"]) for c in children)
+                log(f"[3p] {label}: cross-process sort wall {w_cross:.3f} s (warm, slower "
+                    f"process) beside single-controller {w_single:.3f} s, same call; "
+                    + "; ".join(
+                        f"process {r}: control group {c['legs'][label]['control_s']:.3f} s "
+                        f"in {c['legs'][label]['control_calls']} rounds, handle open "
+                        f"{c['legs'][label]['cold']['open_s']:.3f} s (cold call "
+                        f"{c['legs'][label]['cold']['wall_s']:.3f} s), barrier waits "
+                        f"{c['legs'][label]['barrier_s']:.3f} s, K7 "
+                        f"{c['legs'][label]['k7_ms']:.3f} ms over "
+                        f"{c['legs'][label]['exchanges']} exchanges "
+                        f"({c['legs'][label]['restage_k7']} in the re-stage), launches "
+                        f"{c['legs'][label]['launches']}"
+                        for r, c in enumerate(children)))
+            k7 = [c["k7"] for c in children]
+
+            def span(v):
+                return f"{min(v):.4f}-{max(v):.4f} (median {statistics.median(v):.4f})"
+            log(f"[3p] K7 at [8, {k7[0]['cap']}] per rank, 5 runs each: in process, eight "
+                f"pushes {span(in_process['ms'])} ms by events, host window "
+                f"{span(in_process['window_ms'])} ms; across processes (4 pushes each, bytes "
+                f"equal to the host-staged transport) "
+                + ", ".join(f"process {r} {span(v['ms'])} ms by events"
+                            for r, v in enumerate(k7))
+                + f", host window over both processes' pushes "
+                + ", ".join(f"{span(v['window_ms'])} ms (process {r}'s view)"
+                            for r, v in enumerate(k7)))
+            return {"single": single, "in_process_k7": in_process, "children": children,
+                    "wall_s": wall, "phase_wall_s": time.perf_counter() - t_phase}
+        errs = "\n".join(e[-3000:] for _o, e in outs)
+        if "address already in use" not in errs.lower() or attempt == attempts - 1:
+            raise AssertionError(f"3p: a cross-process child failed (rc "
+                                 f"{[p.returncode for p in procs]}):\n{errs}")
+    raise AssertionError("3p: unreachable")
 
 
 def main() -> int:
@@ -2752,6 +3075,14 @@ def main() -> int:
     multihost_wall = time.perf_counter() - t_mh
     log(f"[main] phase 3o (multihost_init) wall {multihost_wall:.3f} s")
 
+    # -------------------- 3p. the radix sort across two processes on the card
+    # the children assert K6 and K7 in their own counts; these are the
+    # single-controller twins' in this process
+    cross: dict = {}
+    run_path("phase 3p's single-controller twins", (K6, K7),
+             lambda: cross.update(crossprocess_phase(log)))
+    log(f"[main] phase 3p (cross-process radix) wall {cross['phase_wall_s']:.3f} s")
+
     # ---------------------------------------------------------- 4. timing
     entries = []
 
@@ -3096,6 +3427,18 @@ def main() -> int:
     log(f"[timing] phase 3o wall {multihost_wall:.3f} s (one rank "
         f"{multihost['ranks1']['warm_s']:.3f} s, eight ranks "
         f"{multihost['ranks8']['warm_s']:.3f} s) | card {card}")
+    log(f"[timing] phase 3p wall {cross['phase_wall_s']:.3f} s (children "
+        f"{cross['wall_s']:.3f} s; " + "; ".join(
+            f"{label}: cross-process {max(min(c['legs'][label]['walls_s']) for c in cross['children']):.3f} s, "
+            f"single-controller {min(v['walls_s']):.3f} s"
+            for label, v in cross["single"].items())
+        + f"; K7 at [8, {cross['children'][0]['k7']['cap']}] per rank, median ms: in "
+        f"process {statistics.median(cross['in_process_k7']['ms']):.4f} by events, "
+        f"window {statistics.median(cross['in_process_k7']['window_ms']):.4f}; across "
+        + ", ".join(f"process {r} {statistics.median(c['k7']['ms']):.4f}"
+                    for r, c in enumerate(cross["children"]))
+        + f" by events, window {statistics.median(cross['children'][0]['k7']['window_ms']):.4f}"
+        + f") | card {card}")
     for note in slice_notes:
         log(f"[timing] {note} | card {card}")
     for note in tele_notes:

@@ -37,6 +37,15 @@
 // events across cards, with peer access enabled per device pair by
 // exchange_enable_peer_access).
 //
+// Across processes the destination pointers include other processes'
+// receive buffers, mapped through CUDA IPC: each process allocates its
+// ranks' receive arena with exchange_ipc_alloc (a cudaMalloc of its own,
+// so that the IPC handle names exactly that allocation), publishes
+// exchange_ipc_handle, and maps every peer's with exchange_ipc_open.  The
+// ready barrier is then a stream synchronisation and a barrier of the
+// processes on each side of the pushes (ops/exchange.py); the kernel is
+// the same.
+//
 // Bound on the H100: HBM bytes, all three.  K5/K6 read the n input words
 // and write P*cap words per plane; K7 reads and writes P*cap words per
 // rank.  The kernels do no arithmetic worth counting beside their copies.
@@ -46,6 +55,7 @@
 // returns cudaErrorInvalidValue without launching.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -217,6 +227,45 @@ int exchange_enable_peer_access(int device, int peer) {
   }
   const cudaError_t back = cudaSetDevice(prev);
   return static_cast<int>(e != cudaSuccess ? e : back);
+}
+
+// CUDA IPC of the cross-process exchange (not kernel launches).  Each
+// works on the caller's current device.
+
+// Bytes of one IPC handle (cudaIpcMemHandle_t).
+int exchange_ipc_handle_bytes(void) {
+  return static_cast<int>(sizeof(cudaIpcMemHandle_t));
+}
+
+// A receive arena of `bytes` bytes in an allocation of its own.
+int exchange_ipc_alloc(unsigned long long bytes, void** ptr) {
+  return static_cast<int>(cudaMalloc(ptr, static_cast<size_t>(bytes)));
+}
+
+int exchange_ipc_free(void* ptr) {
+  return static_cast<int>(cudaFree(ptr));
+}
+
+// The IPC handle of the allocation at `ptr`, written to `out`
+// (exchange_ipc_handle_bytes() bytes).
+int exchange_ipc_handle(void* ptr, void* out) {
+  cudaIpcMemHandle_t h;
+  const cudaError_t e = cudaIpcGetMemHandle(&h, ptr);
+  if (e == cudaSuccess) memcpy(out, &h, sizeof h);
+  return static_cast<int>(e);
+}
+
+// Map another process's allocation from its handle; `*ptr` is its base
+// address in this process.
+int exchange_ipc_open(const void* handle, void** ptr) {
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof h);
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+int exchange_ipc_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
 }
 
 const char* kernel_error_string(int code) {

@@ -135,6 +135,8 @@ from mpitest_tpu_torch.ops.keys import (
     unsigned_order,
 )
 from mpitest_tpu_torch.ops.pack import CHUNK
+from mpitest_tpu_torch.parallel import collectives
+from mpitest_tpu_torch.parallel import mesh as mesh_mod
 from mpitest_tpu_torch.parallel.mesh import Mesh
 from mpitest_tpu_torch.utils import flight_recorder
 from mpitest_tpu_torch.utils import io as kio
@@ -194,7 +196,7 @@ def device_mem_peak(mesh: Mesh | None) -> int:
     Never raises."""
     try:
         if mesh is not None:
-            devices: Iterable[torch.device] = mesh.devices
+            devices: Iterable[torch.device] = mesh.local_devices
         elif torch.cuda.is_available():
             devices = [torch.device("cuda", i)
                        for i in range(torch.cuda.device_count())]
@@ -222,7 +224,15 @@ class DistributedSortResult:
     one word tuple per rank in ``shards`` (``words`` is then empty): the
     radix layout is contiguous (rank r's n keys follow rank r-1's); the
     sample layout is ragged, rank r's first ``counts[r]`` of its
-    ``shard_slots`` slots being its valid run."""
+    ``shard_slots`` slots being its valid run.
+
+    A result of a mesh across processes (``mesh``) holds only this
+    process's ranks' shards, in rank order: :attr:`addressable` names each
+    one's global rank and ``[start, stop)`` (the reference's
+    ``addressable_shards``).  Its keys cannot be fetched in one process
+    (:meth:`to_numpy` raises ``RuntimeError``, as the reference's fetch of
+    a non-addressable array does); :meth:`median_probe` works in every
+    process."""
 
     words: Words
     n_valid: int                     # real keys (excludes padding)
@@ -230,10 +240,19 @@ class DistributedSortResult:
     counts: np.ndarray | None = None  # per-shard valid counts (ragged layouts)
     shard_slots: int | None = None    # slots per shard for ragged layouts
     shards: tuple[Words, ...] | None = None
+    mesh: Mesh | None = None          # set for a mesh across processes
 
     def __post_init__(self) -> None:
         if self.shards is None:
             self.shards = (tuple(self.words),)
+
+    @property
+    def addressable(self) -> list[tuple[int, int, int]]:
+        """``(rank, start, stop)`` of every shard this process holds, over
+        the global padded key axis (contiguous layout)."""
+        ranks = self.mesh.local_ranks if self.mesh is not None else range(len(self.shards))
+        n = int(self.shards[0][0].numel()) if self.shards and self.shards[0] else 0
+        return [(r, r * n, (r + 1) * n) for r in ranks]
 
     def _valid(self) -> list[int]:
         if self.counts is None:
@@ -249,6 +268,12 @@ class DistributedSortResult:
         (sample) results and ``mono`` take the plain gather."""
         if self.n_valid == 0:
             return np.empty(0, self.dtype)
+        if self.mesh is not None:
+            raise RuntimeError(
+                "fetching a sort result that spans ranks of other processes is "
+                f"not possible: process {self.mesh.process} holds ranks "
+                f"{list(self.mesh.local_ranks)} of {self.mesh.size}; read its "
+                "shards (.shards, .addressable) or median_probe() instead")
         codec = codec_for(self.dtype)
         if self.counts is None and len(self.shards) > 1:
             mode = kio.ingest_mode()
@@ -267,6 +292,17 @@ class DistributedSortResult:
         idx = self.n_valid // 2 - 1
         if idx < 0:
             raise ValueError("median probe undefined for < 2 keys")
+        if self.mesh is not None:
+            # the owner of the key reads it and the control group carries it
+            n = int(self.shards[0][0].numel())
+            owner = self.mesh.owners[idx // n]
+            key = None
+            if owner == self.mesh.process:
+                i = self.mesh.local_ranks.index(idx // n)
+                key = codec_for(self.dtype).decode(
+                    tuple(to_host_words(w[idx % n: idx % n + 1])
+                          for w in self.shards[i]))[0]
+            return mesh_mod.broadcast_object(key, owner)
         for shard, v in zip(self.shards, self._valid()):
             if idx < v:
                 break
@@ -511,6 +547,17 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
     ``device`` names the card (or ``"cpu"``) of a run without a mesh;
     ``device`` and ``mesh`` exclude each other.
 
+    Inside a ``torch.distributed`` group of several processes
+    (``parallel.multihost_init``) every process calls ``sort`` with the
+    same ``x``; without ``mesh`` or ``device`` it runs on the global mesh
+    (``make_mesh()``), as the reference's default does.  On a mesh across
+    processes the radix sort runs the ranks of each process there,
+    exchanging through K7 into the other processes' receive buffers; the
+    result (``return_result=True``) holds this process's shards, and the
+    default return raises ``RuntimeError`` as the reference's fetch does;
+    ``algorithm="sample"`` raises ``RuntimeError`` there, as in the
+    reference.
+
     ``SORT_TRACE=<path>`` streams the run's spans as JSONL; a typed error
     (:class:`SortFaultError`) leaving the call dumps the flight recorder's
     ring (``SORT_FLIGHT_RECORDER_DIR``) before it propagates."""
@@ -518,6 +565,14 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if mesh is not None and device is not None:
         raise ValueError("pass either device or mesh, not both")
+    if (mesh is None and device is None and not isinstance(x, StagedIngest)
+            and mesh_mod.in_group()):
+        # inside a group of several processes the default mesh is the
+        # global one, as the reference's default is
+        mesh = mesh_mod.make_mesh()
+    if mesh is not None and not mesh.local_ranks:
+        raise ValueError(f"no rank of this mesh lies in process {mesh.process}: "
+                         "its ranks are not addressable here")
     tracer = tracer or Tracer()
     _stream_trace(tracer)
     if payload is not None:
@@ -557,9 +612,17 @@ def sort(x: Any, algorithm: str = "radix", mesh: Mesh | None = None,
         run_mesh, where = mesh, {"ranks": mesh.size}
 
         def run() -> Any:
-            return _sort_mesh(x, algorithm, mesh, tracer, return_result,
-                              digit_bits, cap_factor, oversample, pack,
-                              exchange_engine, reg)
+            try:
+                return _sort_mesh(x, algorithm, mesh, tracer, return_result,
+                                  digit_bits, cap_factor, oversample, pack,
+                                  exchange_engine, reg)
+            except Exception as e:
+                if mesh.cross_process and not isinstance(e, mesh_mod.PeerAbortedError):
+                    # the peers end their run too, at their next control
+                    # step, instead of waiting out its timeout
+                    with contextlib.suppress(Exception):
+                        mesh_mod.abort()
+                raise
     else:
         dev = resolve_device(x, mesh.devices[0] if mesh is not None else device)
         run_mesh, where = Mesh((dev,)), {"device": str(dev)}
@@ -977,9 +1040,10 @@ def _host_pad_words(codec: KeyCodec, flat: np.ndarray, dtype: np.dtype,
 def _shard_input(words_np: tuple[np.ndarray, ...], mesh: Mesh, n: int,
                  pad_words: tuple[int, ...] | None = None) -> list[Words]:
     """Host words padded to ``P*n`` and split into per-rank shards on the
-    ranks' devices."""
+    ranks' devices (this process's ranks)."""
     out = []
-    for r, dev in enumerate(mesh.devices):
+    for r in mesh.local_ranks:
+        dev = mesh.devices[r]
         shard = []
         for k, w in enumerate(words_np):
             piece = w[r * n: (r + 1) * n]
@@ -1001,8 +1065,8 @@ def _max_key(words: Words) -> Words:
 def _device_shards(x: torch.Tensor, codec: KeyCodec, dtype: np.dtype,
                    mesh: Mesh, n: int) -> tuple[Words, list[Words]]:
     """Encode device keys where they lie, pad to ``P*n`` with the maximum
-    key (the all-ones word for floats) and split into per-rank shards.
-    Returns ``(unpadded words, shards)``."""
+    key (the all-ones word for floats) and split into per-rank shards
+    (this process's ranks).  Returns ``(unpadded words, shards)``."""
     words = codec.encode_torch(x.reshape(-1))
     N = words[0].numel()
     total = mesh.size * n
@@ -1015,8 +1079,8 @@ def _device_shards(x: torch.Tensor, codec: KeyCodec, dtype: np.dtype,
         padded = tuple(torch.cat([w, p.expand(total - N)]) for w, p in zip(words, pad))
     else:
         padded = words
-    shards = [tuple(w[r * n: (r + 1) * n].to(dev) for w in padded)
-              for r, dev in enumerate(mesh.devices)]
+    shards = [tuple(w[r * n: (r + 1) * n].to(mesh.devices[r]) for w in padded)
+              for r in mesh.local_ranks]
     return words, shards
 
 
@@ -1064,20 +1128,39 @@ def _device_skew_sniff(shards: list[Words], n_valid: int, n_ranks: int) -> bool:
     return bool(torch.any(q[1:] == q[:-1]))
 
 
-def _interleave(shards: list[Words], mesh: Mesh) -> list[Words]:
+def _deal(w: torch.Tensor, r: int, p: int, cap: int) -> torch.Tensor:
+    """Rank r's plane dealt into ``[P, cap]`` blocks: row j holds, in
+    order, its keys whose global position is j modulo P (the lanes past
+    their count repeat the last key and are never read)."""
+    n = w.numel()
+    c = (r * n) % p
+    if c == 0 and n == p * cap:
+        return w.reshape(cap, p).t().contiguous()
+    first = (torch.arange(p, device=w.device) - c) % p
+    idx = first[:, None] + p * torch.arange(cap, device=w.device)
+    return w[idx.clamp_(max=n - 1)]
+
+
+def _interleave(shards: list[Words], mesh: Mesh, engine: str) -> list[Words]:
     """Skew re-stage: deal the global key array round-robin over the
     shards, ``new[j*n + i] = old[i*P + j]`` — a permutation, so the sorted
     output and the fingerprint are unchanged, while a clustered
     arrangement (sorted input) becomes one where every shard holds a
-    stride of the whole distribution."""
+    stride of the whole distribution.  Each rank deals its shard into
+    ``[P, cap]`` blocks (row j for rank j), one all-to-all of the blocks
+    on the run's exchange engine moves them (K7 on the card, into other
+    processes' receive buffers across processes), and each rank joins the
+    rows it received in rank order."""
     n, p = shards[0][0].numel(), mesh.size
-    dev0 = shards[0][0].device
-    out_planes = []
-    for k in range(len(shards[0])):
-        g = torch.cat([s[k].to(dev0) for s in shards])
-        out_planes.append(g.view(n, p).t().reshape(-1))
-    return [tuple(w[r * n: (r + 1) * n].to(dev) for w in out_planes)
-            for r, dev in enumerate(mesh.devices)]
+    # rank r sends rank j its keys at positions first + m*P of its shard
+    first = (np.arange(p)[None, :] - (np.arange(p)[:, None] * n) % p) % p
+    cnt = np.maximum(0, -(-(n - first) // p))                   # [P src, P dst]
+    cap = -(-int(cnt.max()) // 4) * 4                           # K7: cap % 4 == 0
+    local = collectives.local_ranks(p, mesh)
+    sends = [tuple(_deal(w, r, p, cap) for w in s) for r, s in zip(local, shards)]
+    recv = collectives.all_to_all_blocks(sends, engine, mesh)
+    return [tuple(torch.cat([pl[s, :cnt[s, j]] for s in range(p)]) for pl in planes)
+            for j, planes in zip(local, recv)]
 
 
 def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
@@ -1086,8 +1169,15 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                exchange_engine: str | None,
                reg: faults.FaultRegistry | None = None) -> Any:
     """The distributed branch of the reference's ``_sort_impl``, with its
-    supervisor and degradation ladder."""
-    for dev in mesh.devices:
+    supervisor and degradation ladder.  On a mesh across processes every
+    process runs it with the same input: the host decisions (word diffs,
+    digit bits, passes, the probe's counts) are replicated, each process
+    stages and sorts its own ranks' shards, and the verifier's verdict
+    and every retry are agreed over the control group."""
+    across = mesh.cross_process
+    #: a result across processes names its mesh (it holds local shards only)
+    res_mesh = mesh if across else None
+    for dev in mesh.local_devices:
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"mesh rank on {dev} needs CUDA and none is available")
     staged = x if isinstance(x, StagedIngest) else None
@@ -1096,8 +1186,8 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         dtype = staged.dtype
         N = staged.n_valid
     elif is_device:
-        if x.device not in mesh.devices:
-            x = x.to(mesh.devices[0])
+        if x.device not in mesh.local_devices:
+            x = x.to(mesh.local_devices[0])
         dtype = numpy_dtype(x.dtype)
         N = int(x.numel())
     else:
@@ -1178,14 +1268,16 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     donate = _donation_enabled(mesh.devices) and rebuild_words is not None
     if donate and staged is not None:
         staged.consumed = True
-    sup = SortSupervisor(tracer, reg, plan=plan)
+    sup = SortSupervisor(tracer, reg, plan=plan,
+                         agree=mesh_mod.agree if across else None)
     input_fp = None
     if verify_on:
         with tracer.phase("verify"):
             if words_np is not None:
                 input_fp = vfy.fingerprint_host(words_np)
             elif is_device:
-                input_fp = vfy.fingerprint_device(words, N)
+                # across processes every process holds the whole input
+                input_fp = vfy.fingerprint_device([dev_words] if across else words, N)
             else:   # staged or streamed: folded from the host chunks
                 input_fp = stream_fp
 
@@ -1208,7 +1300,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         if state["words"] is None:
             w = rebuild_words()
             if state["restaged"]:
-                w = _interleave(w, mesh)
+                w = _interleave(w, mesh, state["eng"])
             state["words"] = w
         return state["words"]
 
@@ -1233,7 +1325,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         with tracer.spans.span("restage", ranks=n_ranks, n=n):
             state["words"] = _traced_call(
                 tracer, "interleave", (codec.n_words, n, n_ranks, dev_type),
-                _interleave, live_words(), mesh)
+                _interleave, live_words(), mesh, state["eng"])
         state["restaged"] = True
         tracer.count("skew_restage", 1)
         tracer.verbose("skew re-stage: interleaved shards to rebalance the exchange")
@@ -1277,7 +1369,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                 m = _traced_call(tracer, "radix_probe",
                                  (codec.n_words, n, db, n_ranks, dev_type),
                                  radix_sort.radix_probe_spmd, live_words(), db,
-                                 n_ranks)
+                                 n_ranks, mesh)
             else:
                 m = _traced_call(tracer, "sample_probe",
                                  (codec.n_words, n, oversample, n_ranks, dev_type),
@@ -1344,7 +1436,7 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                     lambda: radix_sort.radix_sort_spmd(
                         live_words(), codec.n_words, db, n_ranks, c, passes,
                         pack=eff_pack, exchange_engine=eng,
-                        local_engine=radix_leng),
+                        local_engine=radix_leng, mesh=mesh),
                     n=n, cap=c, passes=passes, digit_bits=db, ranks=n_ranks),
                     on_retry=mark_dead)
                 # the reference's dispatch consumes donated words: drop them
@@ -1366,7 +1458,8 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
             plan.actual("cap", cap=cap, need=last_need[0],
                         peer_recv_bytes=(last_need[0] or 0) * 4 * codec.n_words)
             plan.actual("passes", passes=passes)
-        return DistributedSortResult((), N, dtype, shards=tuple(out))
+        return DistributedSortResult((), N, dtype, shards=tuple(out),
+                                     mesh=res_mesh)
 
     def reroute(why: str, trigger: str) -> DistributedSortResult:
         tracer.verbose(f"sample: {why}; routing to radix (skew-immune)")
@@ -1379,6 +1472,12 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         return run_radix(skew_cap)
 
     def run_sample() -> DistributedSortResult:
+        if across:
+            raise RuntimeError(
+                "sample sort across processes is not available: its ragged "
+                "per-rank counts and splitters would have to be fetched from "
+                "ranks of other processes (the reference raises here too); "
+                "use algorithm='radix'")
         eng = state["eng"]
         eff_pack, eff_align = _engine_pack(pack_impl, eng)
         tracer.counters["exchange_engine"] = eng
@@ -1515,7 +1614,8 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     # candidate; one verify replaces the whole sort when it passes.  A miss
     # costs that verify, and the ladder below sorts the same live words.
     if verdict.passthrough(verify_on) and input_fp is not None:
-        cand = DistributedSortResult((), N, dtype, shards=tuple(live_words()))
+        cand = DistributedSortResult((), N, dtype, shards=tuple(live_words()),
+                                     mesh=res_mesh)
         if _check_result(tracer, cand, input_fp):
             tracer.count("planner_passthrough", 1)
             if plan is not None:
@@ -1581,7 +1681,9 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                     last_err = SortRetryExhausted(
                         f"{level} path failed outside the sort dispatch: {e}")
                     last_err.__cause__ = e
-                    if not isinstance(e, descends):
+                    if across or not isinstance(e, descends):
+                        # across processes no peer saw this failure: the
+                        # run ends in every process (no lone descent)
                         raise last_err from e
                     failed, last_fail = True, "dispatch"
                     tracer.count("sort_retries", 1)
@@ -1613,15 +1715,17 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
     if host_words is not None:
         tracer.counters["degraded_to"] = "host"
         out_np = codec.decode(host_words)
-        if not return_result:
+        if not return_result and not across:
             return out_np
         # best-effort re-stage of the host-sorted words onto the mesh (pads
         # are copies of the maximum key, as in the device layout); a card
         # that fails here too gets a host-backed result
         try:
             pad = _host_pad_words(codec, out_np, dtype, n_ranks * n)
-            return DistributedSortResult(
-                (), N, dtype, shards=tuple(_shard_input(host_words, mesh, n, pad)))
+            res = DistributedSortResult(
+                (), N, dtype, shards=tuple(_shard_input(host_words, mesh, n, pad)),
+                mesh=res_mesh)
+            return res if return_result else res.to_numpy()
         except supervision.TRANSIENT as e:
             if not isinstance(e, descends):
                 raise SortRetryExhausted(

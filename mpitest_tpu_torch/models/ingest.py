@@ -279,7 +279,10 @@ def stream_to_mesh(x: np.ndarray, mesh: Mesh, tracer: "Tracer | None" = None,
     Deterministic: chunk boundaries are fixed arithmetic, the encode is
     elementwise, and the one transfer thread lands chunks in order, so
     the shards hold the same words as the one-shot path's
-    (``models/api._shard_input``)."""
+    (``models/api._shard_input``).  On a mesh across processes every
+    process encodes and folds the whole input (the planner's diffs, the
+    pad and the fingerprint stay the same everywhere) and copies only
+    the pieces of its own ranks' shards."""
     t_wall = time.perf_counter()
     x = np.asarray(x).reshape(-1)
     dtype = np.dtype(x.dtype)
@@ -299,9 +302,9 @@ def stream_to_mesh(x: np.ndarray, mesh: Mesh, tracer: "Tracer | None" = None,
     state.stats.n = N
     state.stats.encode_engine = eng
     shards = alloc_shards(mesh, n, codec.n_words)
-    cards = sorted({d for d in mesh.devices if d.type == "cuda"},
+    cards = sorted({d for d in mesh.local_devices if d.type == "cuda"},
                    key=lambda d: d.index)
-    if cards and len(cards) != len(set(mesh.devices)):
+    if cards and len(cards) != len(set(mesh.local_devices)):
         raise ValueError("a mesh mixing cpu and cuda ranks cannot stream")
     ready = {}
     for d in cards:
@@ -381,6 +384,8 @@ def stream_to_mesh(x: np.ndarray, mesh: Mesh, tracer: "Tracer | None" = None,
             a, b = max(off, start), min(off + clen, stop)
             if a < b:
                 pieces.append((shards[d], a - start, a - off, b - a))
+        if not pieces:
+            return   # the chunk belongs to other processes' ranks
         if cards:
             if copier is None:
                 # the pad chunk holds fewer than n_ranks keys

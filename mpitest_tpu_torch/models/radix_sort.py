@@ -12,10 +12,14 @@ histograms alone, so the sort both merges the pending exchange and groups
 by the new digit.  The last pass's merge is one sort by slot.
 
 Every function here runs all ranks: per-rank values are lists (see
-``parallel/collectives.py``).  The local sorts are the reference's plain
-sorts (``torch.sort``, stable where the reference asks for it); under
-``radix_pallas`` pass 1 runs the fused radix kernel (K4) with the key
-words as payload planes.
+``parallel/collectives.py``).  On a mesh across processes (``mesh=``)
+the lists hold this process's ranks and the loops run over
+``mesh.local_ranks``, each rank keeping its global rank ``r`` in the
+send-count, segment and lane-slot arithmetic; the gathered histograms
+make every pass's decisions the same in every process.  The local sorts
+are the reference's plain sorts (``torch.sort``, stable where the
+reference asks for it); under ``radix_pallas`` pass 1 runs the fused
+radix kernel (K4) with the key words as payload planes.
 
 Telemetry: each pass opens a ``radix_pass`` span and the count probe a
 ``negotiate_probe`` span on the active span log (``utils/spans.py``), so
@@ -34,6 +38,7 @@ import torch
 from mpitest_tpu_torch.ops import exchange as xeng
 from mpitest_tpu_torch.ops import kernels, radix
 from mpitest_tpu_torch.parallel import collectives as coll
+from mpitest_tpu_torch.parallel.mesh import Mesh
 from mpitest_tpu_torch.utils import spans
 
 Words = tuple[torch.Tensor, ...]
@@ -86,12 +91,12 @@ def _send_segments(sorted_dest: torch.Tensor, n: int,
 
 
 def radix_probe_spmd(words: Sequence[Words], digit_bits: int,
-                     n_ranks: int) -> torch.Tensor:
+                     n_ranks: int, mesh: Mesh | None = None) -> torch.Tensor:
     """Capacity-negotiation probe: the exact per-peer send counts of the
     first radix exchange (the least-significant digit of the
     least-significant word), with no key movement.  Returns the int32
     ``[P, P]`` matrix, row r the counts rank r sends (self included), on
-    rank 0's device."""
+    the first (local) rank's device."""
     n = words[0][0].numel()
     n_bins = 1 << digit_bits
     with spans.maybe_span("negotiate_probe", algorithm="radix",
@@ -99,9 +104,10 @@ def radix_probe_spmd(words: Sequence[Words], digit_bits: int,
         hs = [kernels.histogram_sorted(
             torch.sort(kernels.digit_at(w[-1], 0, digit_bits)).values, n_bins)[0]
             for w in words]
-        H = coll.all_gather(hs)                                   # [P, bins]
-        mine = [coll.block_send_counts(H[r], n, r) for r in range(n_ranks)]
-        return coll.all_gather(mine)[0]                           # [P, P]
+        H = coll.all_gather(hs, mesh)                             # [P, bins]
+        mine = [coll.block_send_counts(H[i], n, r)
+                for i, r in enumerate(coll.local_ranks(n_ranks, mesh))]
+        return coll.all_gather(mine, mesh)[0]                     # [P, P]
 
 
 def _plan(n_words: int, digit_bits: int, passes: int | None) -> list[tuple[int, int]]:
@@ -147,7 +153,7 @@ def _merge_pass(recv: Words, recv_cnt: torch.Tensor, slot: torch.Tensor,
 def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
                     n_ranks: int, cap: int, passes: int | None = None,
                     pack: str = "xla", exchange_engine: str = "lax",
-                    local_engine: str = "lax",
+                    local_engine: str = "lax", mesh: Mesh | None = None,
                     ) -> tuple[list[Words], torch.Tensor]:
     """Multi-pass radix sort of every rank's shard (``words[r]``, n keys
     each).
@@ -161,8 +167,12 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
     the same bytes.  ``local_engine="radix_pallas"`` runs pass 1 with K4.
 
     Returns ``(sorted shards, max_send_cnt over passes)``; the latter above
-    ``cap`` means an exchange overflowed and the caller regrows."""
+    ``cap`` means an exchange overflowed and the caller regrows.  With a
+    ``mesh`` across processes, ``words`` and the shards are this process's
+    ranks' (``mesh.local_ranks``)."""
     n = words[0][0].numel()
+    local = coll.local_ranks(n_ranks, mesh)
+    pos = {r: i for i, r in enumerate(local)}
     n_bins = 1 << digit_bits
     fused = xeng.is_pallas(exchange_engine)
     dev0 = words[0][0].device
@@ -177,50 +187,52 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
     for k, (w_idx, shift) in enumerate(plan):
         with _pass_span(k + 1, w_idx, shift, digit_bits, n, cap):
             sds, sorted_words = [], []
-            for r in range(n_ranks):
+            for i, r in enumerate(local):
                 if recv is None:
-                    sd, sw = _first_pass(words[r], w_idx, shift, digit_bits, local_engine)
+                    sd, sw = _first_pass(words[i], w_idx, shift, digit_bits, local_engine)
                 else:
-                    slot = slot_carry[r] if fused else _lane_slots(
-                        recv_cnt[r], *prev[r], n, cap, r)
-                    sd, sw = _merge_pass(recv[r], recv_cnt[r], slot, w_idx, shift,
+                    slot = slot_carry[i] if fused else _lane_slots(
+                        recv_cnt[i], *prev[i], n, cap, r)
+                    sd, sw = _merge_pass(recv[i], recv_cnt[i], slot, w_idx, shift,
                                          digit_bits, n)
                 sds.append(sd)
                 sorted_words.append(sw)
             recv = slot_carry = None
 
             hist = [kernels.histogram_sorted(sd, n_bins) for sd in sds]
-            H, tot, rank_base = coll.exscan_counts([h for h, _ in hist])
+            H, tot, rank_base = coll.exscan_counts([h for h, _ in hist], mesh)
             digit_base = [coll.exclusive_cumsum(t) for t in tot]
-            base = [digit_base[r] + rank_base[r][r] for r in range(n_ranks)]
+            base = [digit_base[i] + rank_base[i][r] for i, r in enumerate(local)]
             if fused:
-                segs = [coll.block_send_segments(hist[r][0], base[r], n, n_ranks)
-                        for r in range(n_ranks)]
+                segs = [coll.block_send_segments(hist[i][0], base[i], n, n_ranks)
+                        for i in range(len(local))]
 
                 def _pre(r: int, rc: torch.Tensor, H=H, db=digit_base,
                          rb=rank_base) -> torch.Tensor:
-                    return _lane_slots(rc, H[r], db[r], rb[r], n, cap, r)
+                    i = pos[r]
+                    return _lane_slots(rc, H[i], db[i], rb[i], n, cap, r)
 
                 recv, recv_cnt, mc, slot_carry = coll.ragged_all_to_all(
                     sorted_words, [s for s, _ in segs], [c for _, c in segs], cap,
-                    n_ranks, pack=pack, engine=exchange_engine, pre_exchange=_pre)
+                    n_ranks, pack=pack, engine=exchange_engine, pre_exchange=_pre,
+                    mesh=mesh)
             else:
                 segs = []
-                for r in range(n_ranks):
-                    _, lo_local = hist[r]
-                    dest = (kernels.piecewise_fill(lo_local, base[r] - lo_local, n)
+                for i in range(len(local)):
+                    _, lo_local = hist[i]
+                    dest = (kernels.piecewise_fill(lo_local, base[i] - lo_local, n)
                             + torch.arange(n, dtype=torch.int32, device=lo_local.device))
                     segs.append(_send_segments(dest, n, n_ranks))
                 recv, recv_cnt, mc = coll.ragged_all_to_all(
                     sorted_words, [s for s, _ in segs], [c for _, c in segs], cap,
-                    n_ranks, pack=pack, engine=exchange_engine)
-                prev = [(H[r], digit_base[r], rank_base[r]) for r in range(n_ranks)]
+                    n_ranks, pack=pack, engine=exchange_engine, mesh=mesh)
+                prev = [(H[i], digit_base[i], rank_base[i]) for i in range(len(local))]
             del sorted_words, sds
         max_cnt = torch.maximum(max_cnt, mc.to(dev0))
 
     out = []
-    for r in range(n_ranks):
-        slot = slot_carry[r] if fused else _lane_slots(recv_cnt[r], *prev[r], n, cap, r)
+    for i, r in enumerate(local):
+        slot = slot_carry[i] if fused else _lane_slots(recv_cnt[i], *prev[i], n, cap, r)
         order = torch.sort(slot.reshape(-1)).indices[:n]
-        out.append(tuple(p.reshape(-1)[order] for p in recv[r]))
+        out.append(tuple(p.reshape(-1)[order] for p in recv[i]))
     return out, max_cnt

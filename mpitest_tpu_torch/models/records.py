@@ -212,6 +212,12 @@ def sort_records(keys: np.ndarray, payload: Any, mesh: Any = None,
     width = int(pay.shape[1])
     if mesh is not None and device is not None:
         raise ValueError("pass either device or mesh, not both")
+    if mesh is not None and 0 not in mesh.local_ranks:
+        # records sort on the mesh's first rank, as in the reference; a
+        # process of a group that does not own it cannot address it
+        raise ValueError(f"the record sort runs on rank 0 of its mesh, which "
+                         f"lies in process {mesh.owners[0]}, not in process "
+                         f"{mesh.process}")
     dev = resolve_device(None, mesh.devices[0] if mesh is not None else device)
     if n == 0:
         return np.empty(0, dtype), pay.reshape(0, width)

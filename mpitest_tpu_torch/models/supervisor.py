@@ -9,7 +9,14 @@
   exchange fault it never reached (``faults_dropped``) and calls
   ``on_retry`` (which marks donated input words dead, so the re-run
   rebuilds them).  The fault registry's ``dispatch_stall``,
-  ``dispatch_oom`` and ``dispatch_error`` sites inject here.
+  ``dispatch_oom`` and ``dispatch_error`` sites inject here.  On a mesh
+  across processes every attempt's outcome is agreed over the control
+  group (``parallel.mesh.agree``): a process whose dispatch failed
+  reports it, a peer still inside its dispatch fails at its next
+  control-group step (``PeerFailedError``) and reports too, and every
+  process then retries, descends or stops on the most severe failure
+  any of them saw.  A failure no retry absorbs ends the run in every
+  process (``parallel.mesh.abort`` in ``models/api.py``).
 * :meth:`SortSupervisor.exchange_loop`: the one cap-regrow loop of both
   distributed sorts: run an attempt at the current cap, grow to the
   reported need on overflow, re-stage the shards once when the overflow
@@ -52,6 +59,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from mpitest_tpu_torch import faults as flt
+from mpitest_tpu_torch.parallel.mesh import PeerFailedError
 from mpitest_tpu_torch.utils import knobs
 
 if TYPE_CHECKING:
@@ -83,9 +91,23 @@ class ExchangeCapExceeded(Exception):
         self.limit = limit
 
 
+class _PeerDispatchFailed(flt.DeviceDispatchError):
+    """A peer process's dispatch failed: every process retries together."""
+
+
+class _PeerOutOfMemory(torch.cuda.OutOfMemoryError):
+    """A peer process's dispatch ran out of device memory: every process
+    retries, and stops, as that process does."""
+
+
 #: The failures a dispatch retry or a ladder rung absorbs.
 TRANSIENT: tuple[type[BaseException], ...] = (flt.DeviceDispatchError,
                                               torch.cuda.OutOfMemoryError)
+
+
+def _kind(e: BaseException) -> str:
+    """A failed dispatch's kind, as the processes agree on it."""
+    return "oom" if isinstance(e, torch.cuda.OutOfMemoryError) else "dispatch"
 
 
 def strict_ladder(dev_type: str) -> bool:
@@ -167,8 +189,13 @@ class SortSupervisor:
 
     def __init__(self, tracer: "Tracer",
                  registry: flt.FaultRegistry | None = None,
-                 plan: "SortPlan | None" = None) -> None:
+                 plan: "SortPlan | None" = None,
+                 agree: Callable[[str | None], list[str]] | None = None) -> None:
         self.tracer = tracer
+        #: across processes: every dispatch's outcome is agreed before
+        #: anyone retries (``parallel.mesh.agree``), so no process retries
+        #: alone while its peers wait in a collective
+        self.agree = agree
         self.registry = registry
         #: the run's decision record: the supervisor knows how wrong a
         #: sizing decision was, so overflow regrows and dispatch retries
@@ -217,36 +244,58 @@ class SortSupervisor:
         :data:`TRANSIENT` failures are retried."""
         attempt = 0
         while True:
+            out = None
             try:
                 self._inject_dispatch_fault()
-                return call()
-            except TRANSIENT as e:
-                # an exchange fault armed for THIS dispatch may not have
-                # been consumed: drop it so it cannot reach a later clean
-                # dispatch (counted as injected when armed, it never
-                # touched data)
-                dropped = flt.drop_pending()
-                if dropped:
-                    self.tracer.count("faults_dropped", dropped)
-                if attempt >= self.max_retries:
-                    raise SortRetryExhausted(
-                        f"{label} failed {attempt + 1} time(s); retry "
-                        f"budget exhausted: {e}") from e
-                delay = min(self.backoff * (2 ** attempt), 2.0)
-                self.tracer.verbose(
-                    f"{label} dispatch failed ({type(e).__name__}); "
-                    f"retry {attempt + 1}/{self.max_retries} in {delay:.2f}s")
-                self.tracer.count("sort_retries", 1)
-                if self.plan is not None:
-                    self.plan.bump("ladder", "dispatch_retries")
-                self.tracer.spans.record(
-                    "supervisor_retry", time.perf_counter(), 0.0,
-                    label=label, attempt=attempt + 1, error=type(e).__name__)
-                if on_retry is not None:
-                    on_retry()
-                if delay:
-                    time.sleep(delay)
-                attempt += 1
+                out, e = call(), None
+            except (*TRANSIENT, PeerFailedError) as err:
+                e = err
+            if self.agree is not None:
+                e = self._agreed(label, e)
+            if e is None:
+                return out
+            # an exchange fault armed for THIS dispatch may not have
+            # been consumed: drop it so it cannot reach a later clean
+            # dispatch (counted as injected when armed, it never
+            # touched data)
+            dropped = flt.drop_pending()
+            if dropped:
+                self.tracer.count("faults_dropped", dropped)
+            if attempt >= self.max_retries:
+                raise SortRetryExhausted(
+                    f"{label} failed {attempt + 1} time(s); retry "
+                    f"budget exhausted: {e}") from e
+            delay = min(self.backoff * (2 ** attempt), 2.0)
+            self.tracer.verbose(
+                f"{label} dispatch failed ({type(e).__name__}); "
+                f"retry {attempt + 1}/{self.max_retries} in {delay:.2f}s")
+            self.tracer.count("sort_retries", 1)
+            if self.plan is not None:
+                self.plan.bump("ladder", "dispatch_retries")
+            self.tracer.spans.record(
+                "supervisor_retry", time.perf_counter(), 0.0,
+                label=label, attempt=attempt + 1, error=type(e).__name__)
+            if on_retry is not None:
+                on_retry()
+            if delay:
+                time.sleep(delay)
+            attempt += 1
+
+    def _agreed(self, label: str, e: BaseException | None) -> BaseException | None:
+        """The dispatch outcome every process acts on: None where every
+        process's dispatch succeeded, else this process's failure or a
+        peer's, of the most severe kind any process saw (an OOM over a
+        dispatch error), so every process retries, descends or stops
+        alike."""
+        kinds = self.agree(None if e is None else _kind(e))
+        if not kinds:
+            return None
+        if "oom" in kinds and not isinstance(e, torch.cuda.OutOfMemoryError):
+            return _PeerOutOfMemory(
+                f"{label}: a dispatch ran out of device memory in a peer process")
+        if e is None or isinstance(e, PeerFailedError):
+            return _PeerDispatchFailed(f"{label}: the dispatch failed in a peer process")
+        return e
 
     # -- the one cap-regrow loop --------------------------------------
     def exchange_loop(self, label: str,

@@ -20,6 +20,13 @@ sorted input.  The reductions are plain PyTorch on the words' device.
 The external sort's spill runs fold on the host: :func:`fingerprint_host`
 for bare keys, :func:`fingerprint_records` once a payload rides, and
 :meth:`Fingerprint.combine` joins the runs' folds.
+
+A result of a mesh across processes (``res.mesh``) holds only this
+process's shards: each process folds and checks its own, and one round of
+the control group carries every process's fold and each rank's first and
+last key (``parallel.mesh.each_process``, which keeps them local on one
+process), so the fingerprint, the seams between ranks of different
+processes and the verdict are the same in every process.
 """
 
 from __future__ import annotations
@@ -31,8 +38,11 @@ import numpy as np
 import torch
 
 from mpitest_tpu_torch.ops.keys import codec_for, unsigned_order
+from mpitest_tpu_torch.parallel import mesh as mesh_mod
 
 if TYPE_CHECKING:
+    from collections.abc import Sequence
+
     from mpitest_tpu_torch.models.api import DistributedSortResult
 
 _U32 = 0xFFFFFFFF
@@ -191,26 +201,54 @@ def _valid_counts(res: "DistributedSortResult") -> "list[int]":
     return [int(c) for c in res.counts]
 
 
+def _local_ranks(res: "DistributedSortResult") -> "Sequence[int]":
+    """The global ranks of the shards a result holds here."""
+    return res.mesh.local_ranks if res.mesh is not None else range(len(res.shards))
+
+
+def _contiguous_fold(res: "DistributedSortResult") -> Fingerprint:
+    """The fold of the shards a contiguous result holds here: rank r holds
+    global keys ``[r*n, (r+1)*n)``, valid below ``n_valid``."""
+    n = int(res.shards[0][0].numel())
+    valid = [max(0, min(n, res.n_valid - r * n)) for r in _local_ranks(res)]
+    return _combine([_fold(w, v) for w, v in zip(res.shards, valid)], sum(valid))
+
+
+def _contiguous_check(res: "DistributedSortResult") -> tuple[bool, Fingerprint]:
+    """Sortedness and fingerprint of a contiguous result: each shard
+    sorted, each seam between consecutive nonempty ranks in order, the
+    first ``n_valid`` keys folded.  Across processes one control-group
+    round carries every process's fold and its ranks' first and last
+    keys."""
+    ends = {r: (is_sorted_words(s), _key_at(s, 0), _key_at(s, -1))
+            for r, s in zip(_local_ranks(res), res.shards) if s[0].numel()}
+    parts = mesh_mod.each_process(res.mesh, (_contiguous_fold(res), ends))
+    every: dict = {}
+    for _, e in parts:
+        every.update(e)
+    ranks = sorted(every)
+    ok = all(every[r][0] for r in ranks) and not any(
+        every[b][1] < every[a][2] for a, b in zip(ranks, ranks[1:]))
+    return ok, _combine([f for f, _ in parts], res.n_valid)
+
+
 def result_fingerprint(res: "DistributedSortResult") -> Fingerprint:
     """Fingerprint of a result's first ``n_valid`` keys in rank order
-    (pads and the ragged layout's fill words left out)."""
-    fp = _fold_shards(list(res.shards), _valid_counts(res), res.n_valid)
-    if res.counts is None:   # contiguous: the count is the caller's claim
-        fp = Fingerprint(res.n_valid, fp.xors, fp.sums)
-    return fp
+    (pads and the ragged layout's fill words left out); across processes,
+    every process's folds combined (every process calls it together)."""
+    if res.counts is None:
+        folds = mesh_mod.each_process(res.mesh, _contiguous_fold(res))
+        return _combine(folds, res.n_valid)
+    return _fold_shards(list(res.shards), _valid_counts(res), res.n_valid)
 
 
 def result_sorted(res: "DistributedSortResult") -> bool:
     """Sortedness of a result in either layout (see :func:`verify_result`)."""
-    shards = list(res.shards)
-    ok = all(is_sorted_words(s) for s in shards)
     if res.counts is None:
-        for a, b in zip(shards, shards[1:]):
-            if a[0].numel() and b[0].numel():
-                ok = ok and not _key_at(b, 0) < _key_at(a, -1)
-        return ok
+        return _contiguous_check(res)[0]
+    ok = all(is_sorted_words(s) for s in res.shards)
     run_max = None
-    for words, c in zip(shards, _valid_counts(res)):
+    for words, c in zip(res.shards, _valid_counts(res)):
         if c == 0:
             continue
         if run_max is not None and _key_at(words, 0) < run_max:
@@ -233,8 +271,11 @@ def verify_result(res: "DistributedSortResult",
     keys at the head of its slots, the maximum word after them): each
     whole shard sorted, each nonempty shard's first key at or above the
     running maximum of the earlier shards' last valid keys, and the valid
-    keys folded up to ``n_valid`` in rank order."""
-    ok = result_sorted(res)
-    out_fp = result_fingerprint(res)
-    fp_ok = input_fp is None or out_fp == input_fp
-    return ok, fp_ok
+    keys folded up to ``n_valid`` in rank order.  Across processes
+    (``res.mesh``) every process calls it together and gets the same
+    verdict."""
+    if res.counts is None:
+        ok, out_fp = _contiguous_check(res)
+    else:
+        ok, out_fp = result_sorted(res), result_fingerprint(res)
+    return ok, input_fp is None or out_fp == input_fp

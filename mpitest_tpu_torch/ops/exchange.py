@@ -18,6 +18,21 @@ all-to-all (K7); port of ``mpitest_tpu/ops/exchange.py``.
   across cards, peer access enabled by ``parallel/mesh.make_mesh``).
   :func:`remote_a2a_plain` is the per-block copy; it is also the
   transport of the ``lax`` engine, standing in for ``lax.all_to_all``.
+* :func:`remote_a2a_across` is K7 across processes (a mesh built inside
+  a group of several processes, ``parallel/mesh.py``): every process
+  allocates its ranks' receive buffers in one arena of its own
+  (``exchange_ipc_alloc``, a ``cudaMalloc`` per rank), publishes their
+  CUDA IPC handles over the control group and maps every peer's; K7 then
+  launches per local rank with the global pointer table, local ranks'
+  buffers by direct pointer.  The arena serves every exchange shape that
+  fits it; a larger one unmaps and frees it first, collectively, and
+  :func:`release_ipc` does the same at the end.  The reference's ready
+  barrier becomes a stream synchronisation and a control-group barrier
+  before the pushes (every buffer's last reader has finished, in every
+  process) and after them (every push has landed).  A failed mapping raises
+  :class:`IpcMappingError` naming the peer.  :func:`staged_a2a` is the
+  host-staged gloo all-to-all across processes: the transport of CPU
+  ranks and of the ``lax`` engine, never a stand-in for K7.
 
 A CUDA tensor launches the kernel or raises; the plain versions run for
 CPU tensors only.  Launches count in ``ops/_build.LAUNCHES`` under
@@ -26,11 +41,16 @@ CPU tensors only.  Launches count in ``ops/_build.LAUNCHES`` under
 
 from __future__ import annotations
 
+import ctypes
+import time
 from collections.abc import Sequence
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING
 
 import torch
 
 from mpitest_tpu_torch.ops import _build
+from mpitest_tpu_torch.utils import spans
 from mpitest_tpu_torch.ops.pack import (
     check_pack_args,
     lib,
@@ -44,6 +64,9 @@ ENGINES = ("lax", "pallas")
 MAX_PLANES = 4
 
 _build.LAUNCHES.update({"fused_pass_pack": 0, "remote_a2a": 0})
+
+if TYPE_CHECKING:
+    from mpitest_tpu_torch.parallel.mesh import Mesh
 
 
 def is_pallas(engine: str) -> bool:
@@ -92,17 +115,17 @@ def fused_pass_pack(arrays: Sequence[torch.Tensor], starts: torch.Tensor,
 # ---------------------------------------------------------------- K7
 
 
-def _check_sends(sends: Sequence[torch.Tensor]) -> bool:
-    """Validate per-rank send matrices; True for CUDA tensors."""
-    n_ranks = len(sends)
-    shape = sends[0].shape
+def _check_planes(planes: Sequence[torch.Tensor], n_ranks: int) -> bool:
+    """Validate send matrices (contiguous int32 ``[P, cap]`` planes of one
+    shape); True for CUDA tensors, False for CPU ones."""
+    shape = planes[0].shape
     if len(shape) != 2 or shape[0] != n_ranks:
         raise ValueError(f"send matrices must be [{n_ranks}, cap], got {tuple(shape)}")
     cap = shape[1]
     if cap % 4 or n_ranks * cap >= 1 << 31:
         raise ValueError(f"cap={cap} must be a multiple of 4 with P*cap < 2^31")
-    types = {s.device.type for s in sends}
-    for s in sends:
+    types = {s.device.type for s in planes}
+    for s in planes:
         if s.dtype != torch.int32 or s.shape != shape or not s.is_contiguous():
             raise ValueError("send matrices are contiguous int32 [P, cap] planes "
                              "of one shape")
@@ -150,7 +173,7 @@ def remote_a2a(sends: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     sends = list(sends)
     if len(sends) == 1:
         return sends
-    if not _check_sends(sends):
+    if not _check_planes(sends, len(sends)):
         return remote_a2a_plain(sends)
     n_ranks, cap = sends[0].shape
     devices = [s.device for s in sends]
@@ -183,3 +206,238 @@ def enable_peer_access(devices: Sequence[torch.device]) -> None:
                     raise RuntimeError(
                         f"peer access cuda:{a} -> cuda:{b} failed: "
                         f"{exchange.kernel_error_string(rc).decode()} (code {rc})")
+
+
+# ---------------------------------------------------------------- K7 across processes
+
+
+class IpcMappingError(RuntimeError):
+    """A peer process's receive buffer could not be mapped (or an arena
+    could not be made): the cross-process exchange has no other route."""
+
+
+class _DeviceBuffer:
+    """A raw device allocation seen by ``torch.as_tensor`` through the
+    CUDA array interface (int32 words)."""
+
+    def __init__(self, ptr: int, words: int) -> None:
+        self.__cuda_array_interface__ = {
+            "shape": (words,), "typestr": "<i4", "data": (ptr, False),
+            "version": 2, "strides": None}
+
+
+@dataclass
+class _Arena:
+    """This process's receive buffers and its mappings of its peers':
+    ``words`` int32 words a rank, laid out as ``[W, P, cap]`` per
+    exchange shape (``layouts``: the pointer table and the local views)."""
+
+    mesh: "Mesh"
+    device: torch.device
+    words: int
+    own: dict[int, int] = field(default_factory=dict)      # rank -> cudaMalloc base
+    mapped: dict[int, int] = field(default_factory=dict)   # rank -> IPC-mapped base
+    layouts: dict[tuple[int, int], tuple[torch.Tensor, dict[int, torch.Tensor]]] = \
+        field(default_factory=dict)
+
+    def layout(self, n_words: int, cap: int) -> tuple[torch.Tensor, dict[int, torch.Tensor]]:
+        """``([W, P] int64 push table, rank -> [W, P, cap] view)`` of one
+        exchange shape."""
+        key = (n_words, cap)
+        if key not in self.layouts:
+            p = self.mesh.size
+            base = [self.own.get(r, self.mapped.get(r)) for r in range(p)]
+            table = torch.tensor([[b + k * p * cap * 4 for b in base]
+                                  for k in range(n_words)], dtype=torch.int64,
+                                 device=self.device)
+            views = {r: torch.as_tensor(_DeviceBuffer(ptr, n_words * p * cap),
+                                        device=self.device).view(n_words, p, cap)
+                     for r, ptr in self.own.items()}
+            self.layouts[key] = (table, views)
+        return self.layouts[key]
+
+
+#: The current arena (one per process; it only grows).
+_arena: _Arena | None = None
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib().kernel_error_string(rc).decode()
+        raise IpcMappingError(f"{what} failed: {msg} (code {rc})")
+
+
+def _new_arena(mesh: "Mesh", device: torch.device, words: int) -> _Arena:
+    """Allocate every local rank's receive buffer of ``words`` int32
+    words, publish the handles over the control group and map every
+    peer's buffer (collective; its host seconds go to the innermost open
+    span as ``ipc_open_s``)."""
+    from mpitest_tpu_torch.parallel import mesh as mesh_mod
+
+    ex = lib()
+    arena = _Arena(mesh, device, words)
+    handle_bytes = ex.exchange_ipc_handle_bytes()
+    handles = {}
+    t0 = time.perf_counter()
+    with torch.cuda.device(device):
+        try:
+            for r in mesh.local_ranks:
+                ptr = ctypes.c_void_p()
+                _check(ex.exchange_ipc_alloc(words * 4, ctypes.byref(ptr)),
+                       f"allocating the receive arena of rank {r} ({words * 4} bytes)")
+                arena.own[r] = ptr.value
+                buf = ctypes.create_string_buffer(handle_bytes)
+                _check(ex.exchange_ipc_handle(ptr, buf),
+                       f"exporting the IPC handle of rank {r}'s receive arena")
+                handles[r] = buf.raw
+            published = {}
+            for part in mesh_mod.gather_objects(handles):
+                published.update(part)
+            for r in range(mesh.size):
+                if r in arena.own:
+                    continue
+                ptr = ctypes.c_void_p()
+                rc = ex.exchange_ipc_open(published[r], ctypes.byref(ptr))
+                if rc != 0:
+                    raise IpcMappingError(
+                        f"mapping the receive buffer of rank {r} (process "
+                        f"{mesh.owners[r]}) into process {mesh.process} failed: "
+                        f"{ex.kernel_error_string(rc).decode()} (code {rc})")
+                arena.mapped[r] = ptr.value
+        except BaseException:
+            _free(arena)
+            raise
+    spans.add_to_open_span(ipc_open_s=time.perf_counter() - t0)
+    return arena
+
+
+def _free(arena: _Arena) -> None:
+    """Unmap the peers' buffers and free this process's (no barrier)."""
+    ex = lib()
+    arena.layouts.clear()
+    with torch.cuda.device(arena.device):
+        for ptr in arena.mapped.values():
+            ex.exchange_ipc_close(ctypes.c_void_p(ptr))
+        arena.mapped.clear()
+        for ptr in arena.own.values():
+            ex.exchange_ipc_free(ctypes.c_void_p(ptr))
+        arena.own.clear()
+
+
+def release_ipc() -> None:
+    """Unmap every peer's receive buffers and free this process's, in
+    every process together: a barrier after the last pushes, the unmaps,
+    a barrier, then the frees (no owner frees a buffer a peer still
+    maps).  A no-op where no arena was made."""
+    global _arena
+    from mpitest_tpu_torch.parallel import mesh as mesh_mod
+
+    arena, _arena = _arena, None
+    if arena is None:
+        return
+    torch.cuda.current_stream(arena.device).synchronize()
+    mesh_mod.barrier()
+    ex = lib()
+    with torch.cuda.device(arena.device):
+        for ptr in arena.mapped.values():
+            _check(ex.exchange_ipc_close(ctypes.c_void_p(ptr)),
+                   "unmapping a peer's receive buffer")
+    arena.mapped.clear()
+    mesh_mod.barrier()
+    _free(arena)
+
+
+def _arena_for(mesh: "Mesh", device: torch.device, words: int) -> _Arena:
+    """The arena of ``mesh`` on ``device`` with at least ``words`` words a
+    rank: the current one, or (collectively) a new one in its place."""
+    global _arena
+    if (_arena is not None and _arena.mesh == mesh and _arena.device == device
+            and _arena.words >= words):
+        return _arena
+    release_ipc()
+    _arena = _new_arena(mesh, device, words)
+    return _arena
+
+
+def remote_a2a_across(sends: Sequence[Sequence[torch.Tensor]],
+                      mesh: "Mesh") -> list[tuple[torch.Tensor, ...]]:
+    """K7 across processes: ``sends[i]`` holds local rank i's ``[P, cap]``
+    send planes (``mesh.local_ranks[i]``); returns each local rank's
+    receive planes (row s is what rank s sent), views of the receive
+    arena that stay valid until the next exchange.  CPU ranks take
+    :func:`staged_a2a`; CUDA ranks launch K7 or raise.  Where a span is
+    open, its attrs gain the host seconds of the stream syncs and
+    barriers on each side of the pushes (``ipc_wait_s``), the pushes'
+    device milliseconds (``k7_device_ms``, CUDA events made only then)
+    and one ``k7_exchanges``."""
+    from mpitest_tpu_torch.parallel import mesh as mesh_mod
+
+    flat = [pl for s in sends for pl in s]
+    if not _check_planes(flat, mesh.size):
+        return staged_a2a(sends, mesh)
+    devices = {pl.device for pl in flat}
+    if len(devices) != 1:
+        raise ValueError("the cross-process exchange needs this process's ranks "
+                         f"on one card, got {sorted(map(str, devices))}")
+    dev = flat[0].device
+    n_words = len(sends[0])
+    p, cap = flat[0].shape
+    table, views = _arena_for(mesh, dev, n_words * p * cap).layout(n_words, cap)
+    stream = torch.cuda.current_stream(dev)
+    ex = lib()
+    timed = spans.current_log() is not None
+    t0 = time.perf_counter()
+    stream.synchronize()         # this process's readers of the arena are done
+    mesh_mod.barrier()           # ... and every peer's: the buffers are ready
+    wait = time.perf_counter() - t0
+    if timed:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+    for i, me in enumerate(mesh.local_ranks):
+        for k in range(n_words):
+            _build.launch(ex, "remote_a2a", dev, sends[i][k].data_ptr(),
+                          table[k].data_ptr(), me, p, cap)
+    if timed:
+        end.record(stream)
+    t0 = time.perf_counter()
+    stream.synchronize()         # every push of this process has landed
+    mesh_mod.barrier()           # ... and every peer's
+    if timed:
+        spans.add_to_open_span(ipc_wait_s=wait + time.perf_counter() - t0,
+                               k7_device_ms=start.elapsed_time(end), k7_exchanges=1)
+    return [tuple(views[me][k] for k in range(n_words)) for me in mesh.local_ranks]
+
+
+def staged_a2a(sends: Sequence[Sequence[torch.Tensor]],
+               mesh: "Mesh") -> list[tuple[torch.Tensor, ...]]:
+    """The host-staged all-to-all across processes: every local rank's
+    ``[P, cap]`` send planes go to the host, one ``all_to_all_single``
+    over the gloo control group moves each process's blocks to their
+    owners, and the receive planes come back to the ranks' devices.  The
+    transport of CPU ranks and of the ``lax`` engine, and the plain
+    version that K7 across processes is held to."""
+    from mpitest_tpu_torch.parallel import mesh as mesh_mod
+
+    local = mesh.local_ranks
+    n_words = len(sends[0])
+    p, cap = sends[0][0].shape
+    host = torch.stack([torch.stack([pl.detach().cpu() for pl in s]) for s in sends])
+    # a mesh across processes holds ranks of every process of the group
+    owned = [[r for r in range(p) if mesh.owners[r] == q]
+             for q in sorted(set(mesh.owners))]
+    # to process q: for each of its ranks d, for each local source i, the
+    # W planes' row d
+    inp = torch.cat([host[:, :, ranks, :].permute(2, 0, 1, 3).reshape(-1)
+                     for ranks in owned])
+    in_splits = [len(ranks) * len(local) * n_words * cap for ranks in owned]
+    out_splits = [len(local) * len(ranks) * n_words * cap for ranks in owned]
+    out = torch.empty(sum(out_splits), dtype=torch.int32)
+    mesh_mod.all_to_all_single(out, inp, out_splits, in_splits)
+    recv = torch.empty(len(local), n_words, p, cap, dtype=torch.int32)
+    off = 0
+    for ranks, size in zip(owned, out_splits):
+        block = out[off:off + size].view(len(local), len(ranks), n_words, cap)
+        recv[:, :, ranks, :] = block.permute(0, 2, 1, 3)
+        off += size
+    return [tuple(recv[i, k].to(sends[i][0].device) for k in range(n_words))
+            for i in range(len(local))]

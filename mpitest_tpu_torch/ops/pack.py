@@ -42,6 +42,17 @@ SIGNATURES = {
                         _P, _P, _L, _I, _I, _P),
     "remote_a2a": (_P, _P, _I, _I, _I, _P),
 }
+#: The entries of ``csrc/exchange.cu`` that launch nothing (peer access
+#: and the CUDA IPC of the cross-process exchange): no stream argument.
+HOST_SIGNATURES = {
+    "exchange_enable_peer_access": (_I, _I),
+    "exchange_ipc_handle_bytes": (),
+    "exchange_ipc_alloc": (ctypes.c_ulonglong, ctypes.POINTER(_P)),
+    "exchange_ipc_free": (_P,),
+    "exchange_ipc_handle": (_P, _P),
+    "exchange_ipc_open": (_P, ctypes.POINTER(_P)),
+    "exchange_ipc_close": (_P,),
+}
 
 _build.LAUNCHES["segment_pack"] = 0
 
@@ -49,10 +60,12 @@ _build.LAUNCHES["segment_pack"] = 0
 def lib() -> ctypes.CDLL:
     """The loaded ``csrc/exchange.cu`` library, every entry typed."""
     out = _build.typed("exchange", SIGNATURES)
-    if not hasattr(out, "peer_typed"):
-        out.exchange_enable_peer_access.argtypes = [_I, _I]
-        out.exchange_enable_peer_access.restype = _I
-        out.peer_typed = True
+    if not hasattr(out, "host_typed"):
+        for entry, argtypes in HOST_SIGNATURES.items():
+            fn = getattr(out, entry)
+            fn.argtypes = list(argtypes)
+            fn.restype = _I
+        out.host_typed = True
     return out
 
 

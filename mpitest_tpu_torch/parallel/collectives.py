@@ -7,6 +7,16 @@ function takes and returns such lists.  Replicated results (the gathered
 histogram matrix, splitters) are one tensor per rank as well, so a rank
 never reads another rank's device outside a collective.
 
+On a mesh across processes (``mesh=`` with ``Mesh.cross_process``) the
+lists carry only this process's ranks (``mesh.local_ranks``, in order),
+each on its device.  The small-tensor collectives assemble the global
+``[P, ...]`` value over the control group from host copies of the local
+entries (``parallel/mesh.gather_ranks``), so every process computes the
+same replicated value.  The payload (:func:`all_to_all_blocks`) crosses
+processes through K7 pushing into the peers' receive buffers (CUDA
+ranks, the ``pallas`` engine), or through the host-staged gloo
+all-to-all (CPU ranks, and the ``lax`` engine: ``ops/exchange.py``).
+
 :func:`ragged_all_to_all` is the exchange of both sorts: the explicit
 count exchange, the pack of each rank's contiguous segments into a
 ``[P, cap]`` send matrix (K5, K6 or plain scatter), the transport (K7 or
@@ -29,14 +39,26 @@ import torch
 from mpitest_tpu_torch import faults
 from mpitest_tpu_torch.ops import exchange as xeng
 from mpitest_tpu_torch.ops import kernels, pack as kpack
-from mpitest_tpu_torch.parallel.mesh import AXIS
+from mpitest_tpu_torch.parallel import mesh as mesh_mod
+from mpitest_tpu_torch.parallel.mesh import AXIS, Mesh
 from mpitest_tpu_torch.utils import spans
 
 Words = tuple[torch.Tensor, ...]
 PerRank = list
 
 
-def _emit_collective(name: str, xs: Sequence[torch.Tensor], **attrs: object) -> None:
+def _across(mesh: Mesh | None) -> bool:
+    return mesh is not None and mesh.cross_process
+
+
+def local_ranks(n_ranks: int, mesh: Mesh | None = None) -> tuple[int, ...]:
+    """The global ranks whose entries a per-rank list carries: every rank,
+    or this process's on a mesh across processes."""
+    return mesh.local_ranks if _across(mesh) else tuple(range(n_ranks))
+
+
+def _emit_collective(name: str, xs: Sequence[torch.Tensor], ranks: int,
+                     **attrs: object) -> None:
     """One point event per collective call: ``bytes`` is the per-rank
     payload entering it, ``bytes_out`` (all_gather) the per-rank result,
     ``ranks`` the participants.  Sizes come from shapes: no host read."""
@@ -44,10 +66,23 @@ def _emit_collective(name: str, xs: Sequence[torch.Tensor], **attrs: object) -> 
     if log is None:
         return
     b_in = int(xs[0].numel()) * xs[0].element_size()
-    attrs.setdefault("ranks", len(xs))
+    attrs.setdefault("ranks", ranks)
     if name == "all_gather":
-        attrs.setdefault("bytes_out", b_in * len(xs))
+        attrs.setdefault("bytes_out", b_in * ranks)
     log.event(name, bytes=b_in, axis=AXIS, **attrs)
+
+
+def _stacked(xs: Sequence[torch.Tensor], mesh: Mesh | None) -> torch.Tensor:
+    """The ``[P, ...]`` stack of every rank's entry, in rank order, on the
+    first entry's device; across processes through the control group."""
+    if not _across(mesh):
+        return torch.stack([x.to(xs[0].device) for x in xs])
+    rows = torch.stack([x.detach().cpu() for x in xs]).numpy()
+    return torch.from_numpy(mesh_mod.gather_ranks(mesh, rows)).to(xs[0].device)
+
+
+def _size(xs: Sequence[torch.Tensor], mesh: Mesh | None) -> int:
+    return mesh.size if _across(mesh) else len(xs)
 
 
 def _on(xs: Sequence[torch.Tensor], t: torch.Tensor) -> PerRank:
@@ -56,25 +91,23 @@ def _on(xs: Sequence[torch.Tensor], t: torch.Tensor) -> PerRank:
     return [t.to(x.device) for x in xs]
 
 
-def all_gather(xs: Sequence[torch.Tensor]) -> PerRank:
+def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh | None = None) -> PerRank:
     """``MPI_Allgather``: every rank gets the ``[P, ...]`` stack, in rank
     order."""
-    _emit_collective("all_gather", xs)
-    stacked = torch.stack([x.to(xs[0].device) for x in xs])
-    return _on(xs, stacked)
+    _emit_collective("all_gather", xs, _size(xs, mesh))
+    return _on(xs, _stacked(xs, mesh))
 
 
-def psum(xs: Sequence[torch.Tensor]) -> PerRank:
+def psum(xs: Sequence[torch.Tensor], mesh: Mesh | None = None) -> PerRank:
     """``MPI_Allreduce(SUM)``."""
-    _emit_collective("psum", xs, op="sum")
-    total = torch.stack([x.to(xs[0].device) for x in xs]).sum(0)
-    return _on(xs, total.to(xs[0].dtype))
+    _emit_collective("psum", xs, _size(xs, mesh), op="sum")
+    return _on(xs, _stacked(xs, mesh).sum(0).to(xs[0].dtype))
 
 
-def pmax(xs: Sequence[torch.Tensor]) -> PerRank:
+def pmax(xs: Sequence[torch.Tensor], mesh: Mesh | None = None) -> PerRank:
     """``MPI_Allreduce(MAX)``."""
-    _emit_collective("pmax", xs, op="max")
-    return _on(xs, torch.stack([x.to(xs[0].device) for x in xs]).amax(0))
+    _emit_collective("pmax", xs, _size(xs, mesh), op="max")
+    return _on(xs, _stacked(xs, mesh).amax(0))
 
 
 def exclusive_cumsum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
@@ -82,14 +115,14 @@ def exclusive_cumsum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     return torch.cumsum(x, axis, dtype=x.dtype) - x
 
 
-def exscan_counts(hs: Sequence[torch.Tensor]
+def exscan_counts(hs: Sequence[torch.Tensor], mesh: Mesh | None = None
                   ) -> tuple[PerRank, PerRank, PerRank]:
     """Global exclusive scan of per-rank count vectors: per rank
     ``(H, tot, rank_base)`` with ``H`` the ``[P, B]`` gathered histograms,
     ``tot[b] = sum_r H[r, b]`` and ``rank_base[r, b] = sum_{r'<r} H[r', b]``
     (the ``MPI_Exscan``, computed replicated after one all_gather)."""
-    _emit_collective("all_gather", hs)
-    H = torch.stack([h.to(hs[0].device) for h in hs])
+    _emit_collective("all_gather", hs, _size(hs, mesh))
+    H = _stacked(hs, mesh)
     tot = H.sum(0, dtype=H.dtype)
     rank_base = exclusive_cumsum(H, 0)
     return _on(hs, H), _on(hs, tot), _on(hs, rank_base)
@@ -143,6 +176,26 @@ def _xla_pack(a: torch.Tensor, send_start: torch.Tensor, cap: int, n_ranks: int,
     return out[:-1].view(n_ranks, cap)
 
 
+def all_to_all_blocks(sends: Sequence[Words], engine: str,
+                      mesh: Mesh | None = None) -> PerRank:
+    """``MPI_Alltoall`` of ``[P, cap]`` blocks: ``sends[i]`` holds the word
+    planes of the i-th rank of the list (row p for rank p); returns per
+    rank its receive planes (row s is what rank s sent).  The ``pallas``
+    engine moves them with K7 (into other processes' receive buffers
+    through CUDA IPC on a mesh across processes); ``lax`` with per-block
+    copies, or across processes with the host-staged gloo all-to-all.
+    CPU ranks take the plain versions."""
+    if _across(mesh):
+        if xeng.is_pallas(engine):
+            return xeng.remote_a2a_across(sends, mesh)
+        return xeng.staged_a2a(sends, mesh)
+    if len(sends) == 1:
+        return list(sends)
+    move = xeng.remote_a2a if xeng.is_pallas(engine) else xeng.remote_a2a_plain
+    planes = [move([s[k] for s in sends]) for k in range(len(sends[0]))]
+    return [tuple(pl[i] for pl in planes) for i in range(len(sends))]
+
+
 def ragged_all_to_all(
     arrays: Sequence[Words],
     send_start: Sequence[torch.Tensor],
@@ -153,6 +206,7 @@ def ragged_all_to_all(
     pack: str = "xla",
     engine: str = "lax",
     pre_exchange: Callable[[int, torch.Tensor], Any] | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[PerRank, PerRank, torch.Tensor] | tuple[PerRank, PerRank, torch.Tensor, PerRank]:
     """``MPI_Alltoallv`` for contiguous ragged segments.
 
@@ -188,36 +242,37 @@ def ragged_all_to_all(
                   wire_bytes=(n_ranks - 1) * cap * itemsize + (n_ranks - 1) * 4,
                   ranks=n_ranks, cap=cap, n=int(arrays[0][0].numel()),
                   arrays=n_words, pack=pack, engine=engine, axis=AXIS)
+    local = local_ranks(n_ranks, mesh)
     # explicit count exchange: recv_cnt[me][s] = min(send_cnt[s][me], cap)
-    sent = torch.stack([c.to(send_cnt[0].device) for c in send_cnt]).clamp(max=cap)
-    recv_cnt = [sent[:, me].to(c.device).contiguous() for me, c in enumerate(send_cnt)]
-    pre_result = ([pre_exchange(me, rc) for me, rc in enumerate(recv_cnt)]
+    counts = _stacked(send_cnt, mesh)
+    sent = counts.clamp(max=cap)
+    recv_cnt = [sent[:, me].to(c.device).contiguous() for me, c in zip(local, send_cnt)]
+    pre_result = ([pre_exchange(me, rc) for me, rc in zip(local, recv_cnt)]
                   if pre_exchange is not None else None)
 
+    mine = range(len(local))
+
+    def pack_plane(k: int) -> PerRank:
+        if pack == "xla":
+            return [_xla_pack(arrays[i][k], send_start[i], cap, n_ranks, fills[k])
+                    for i in mine]
+        if pack == "pallas":
+            return [kpack.segment_pack(arrays[i][k], send_start[i], send_cnt[i],
+                                       cap, n_ranks, fills[k]) for i in mine]
+        raise ValueError(f"unknown pack {pack!r}; use 'xla' or 'pallas'")
+
     if use_pallas:
-        sends = [xeng.fused_pass_pack(arrays[r], send_start[r], send_cnt[r], cap,
-                                      n_ranks, fills) for r in range(n_ranks)]
-        planes = [xeng.remote_a2a([sends[r][k] for r in range(n_ranks)])
-                  for k in range(n_words)]
+        sends = [xeng.fused_pass_pack(arrays[i], send_start[i], send_cnt[i], cap,
+                                      n_ranks, fills) for i in mine]
     else:
-        planes = []
-        for k in range(n_words):
-            if pack == "xla":
-                sends = [_xla_pack(arrays[r][k], send_start[r], cap, n_ranks, fills[k])
-                         for r in range(n_ranks)]
-            elif pack == "pallas":
-                sends = [kpack.segment_pack(arrays[r][k], send_start[r], send_cnt[r],
-                                            cap, n_ranks, fills[k])
-                         for r in range(n_ranks)]
-            else:
-                raise ValueError(f"unknown pack {pack!r}; use 'xla' or 'pallas'")
-            planes.append(xeng.remote_a2a_plain(sends) if n_ranks > 1 else sends)
-    recv = [tuple(planes[k][r] for k in range(n_words)) for r in range(n_ranks)]
+        packed = [pack_plane(k) for k in range(n_words)]
+        sends = [tuple(p[i] for p in packed) for i in mine]
+    recv = all_to_all_blocks(sends, engine, mesh)
     # fault injection: an exchange fault armed for this dispatch lands here,
     # between the transport and the receivers' local sort or merge, on
     # every rank (after pre_exchange read the clean counts); no-op otherwise
     recv, recv_cnt = faults.apply_exchange_fault(recv, recv_cnt)
-    max_send_cnt = torch.stack([c.max().to(send_cnt[0].device) for c in send_cnt]).max()
+    max_send_cnt = counts.max()
     if pre_exchange is not None:
         return recv, recv_cnt, max_send_cnt, pre_result
     return recv, recv_cnt, max_send_cnt

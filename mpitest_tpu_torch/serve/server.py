@@ -176,9 +176,17 @@ class ServerCore:
 
     def __init__(self, mesh: "Mesh | None" = None,
                  tracer: "Tracer | None" = None) -> None:
-        from mpitest_tpu_torch.parallel.mesh import make_mesh
+        from mpitest_tpu_torch.parallel.mesh import (
+            CrossProcessMeshError,
+            in_group,
+            make_mesh,
+        )
         from mpitest_tpu_torch.utils.trace import Tracer as _Tracer
 
+        if mesh.cross_process if mesh is not None else in_group():
+            raise CrossProcessMeshError(
+                "the sort server across processes is not ported yet (see "
+                "ROADMAP); run one server per process on a mesh of its own")
         # the card unless the caller passes ranks; no card raises here
         self.mesh = mesh if mesh is not None else make_mesh()
         #: where a packed batch and the cache's warm-ups run

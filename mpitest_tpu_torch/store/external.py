@@ -251,11 +251,22 @@ def _merge_level(level: "list[runlib.RunInfo]", spill_dir: str,
 
 def _resolve(device: Any, mesh: Any) -> torch.device:
     """The device of an external sort: the mesh's first rank, ``device``,
-    or the card; raises without CUDA when neither is given."""
+    or the card; raises without CUDA when neither is given, and
+    ``RuntimeError`` across processes (a mesh across processes, or no
+    ``device`` inside a group of several)."""
     from mpitest_tpu_torch.models.api import resolve_device
+
+    from mpitest_tpu_torch.parallel.mesh import in_group
 
     if mesh is not None and device is not None:
         raise ValueError("pass either device or mesh, not both")
+    if (mesh.cross_process if mesh is not None else device is None and in_group()):
+        # the reference's chunk sorts run on the global mesh and fail to
+        # fetch their results; the port refuses up front with the same class
+        raise RuntimeError(
+            "external_sort across processes is not available: its chunk "
+            "results would span ranks of other processes; pass device= to "
+            "sort on this process alone")
     return resolve_device(None, mesh.devices[0] if mesh is not None
                           else device)
 

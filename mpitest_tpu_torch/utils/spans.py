@@ -147,6 +147,16 @@ def emit(name: str, **attrs: object) -> None:
         log.event(name, **attrs)
 
 
+def add_to_open_span(**amounts: float) -> None:
+    """Add ``amounts`` to the attrs of the innermost open span of the
+    active log, summed per key (no-op when no span is open): how a layer
+    below the tracer records what it measured on the span that encloses
+    it, under no span name of its own."""
+    log = current_log()
+    if log is not None:
+        log.add_to_open(**amounts)
+
+
 def maybe_span(
     name: str, **attrs: object,
 ) -> "contextlib.AbstractContextManager[Span | None]":
@@ -211,6 +221,7 @@ class SpanLog:
         #: swallowed, telemetry never takes down the traced path
         self.observers: list[Callable[[Span], None]] = []
         self._stack: list[int] = []
+        self._open: list[Span] = []          # the open spans, mirrors _stack
         self._drop_stack: list[bool] = []   # sampler verdicts, mirrors _stack
         #: the trace context of each open span's opener (mirrors _stack);
         #: worker-thread record()s inherit the innermost one
@@ -276,6 +287,15 @@ class SpanLog:
         self._flush(s)
         return s
 
+    def add_to_open(self, **amounts: float) -> None:
+        """Add ``amounts`` to the innermost open span's attrs, summed per
+        key (no-op when none is open)."""
+        with self._lock:
+            if self._open:
+                attrs = self._open[-1].attrs
+                for k, v in amounts.items():
+                    attrs[k] = attrs.get(k, 0) + v
+
     def event(self, name: str, **attrs: object) -> Span:
         """Point event (dt=0) under the innermost open span."""
         s = self._new(name, attrs)
@@ -297,6 +317,7 @@ class SpanLog:
             if opener_ctx is None and self._ctx_stack:
                 opener_ctx = self._ctx_stack[-1]
             self._stack.append(s.id)
+            self._open.append(s)
             self._drop_stack.append(s.stream_drop)
             self._ctx_stack.append(opener_ctx)
             outermost = len(self._stack) == 1
@@ -308,6 +329,7 @@ class SpanLog:
             s.dt = time.perf_counter() - s.t0
             with self._lock:
                 self._stack.pop()
+                self._open.pop()
                 self._drop_stack.pop()
                 self._ctx_stack.pop()
             if outermost and _ACTIVE and _ACTIVE[-1] is self:

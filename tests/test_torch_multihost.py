@@ -3,15 +3,20 @@
 ``parallel.multihost_init`` is the reference's ``multihost_init`` over
 ``torch.distributed``: the same no-op, the same fail-fast validation with
 the same ``ValueError`` texts, then a process group (gloo here, where the
-tests pass ``device="cpu"``; NCCL on a card).  A group of one process
-sorts on the mesh built after it; a group of several raises the typed
-``CrossProcessMeshError``.  ``ops/_build.py`` bounds every ``nvcc`` and
+tests pass ``device="cpu"``; NCCL on a card of its own) and the gloo
+control group.  A group of one process sorts on the mesh built after it;
+in a group of several ``make_mesh`` builds one mesh of global ranks in
+process order (``tests/test_torch_crossprocess.py`` holds its sorts
+against the reference's), and the server, not ported across processes
+yet, raises the typed ``CrossProcessMeshError``.  ``ops/_build.py`` bounds every ``nvcc`` and
 never holds its lock across a build (the counterpart of the reference's
 bounded topology probe); a fake ``nvcc`` stands in for the compiler.
 """
 
 from __future__ import annotations
 
+import datetime
+import json
 import os
 import socket
 import subprocess
@@ -118,8 +123,11 @@ def test_validation_texts_equal_reference(args):
 
 def test_bracketed_ipv6_passes_validation(monkeypatch):
     """``[::1]:port`` is accepted, as in the reference: the call reaches
-    ``init_process_group`` with its ``tcp://`` address."""
+    ``init_process_group`` with its ``tcp://`` address and the control
+    group's bounded timeout, then makes the control group."""
     import torch.distributed as dist
+
+    from mpitest_tpu_torch.parallel import mesh as mesh_mod
 
     seen = {}
 
@@ -127,9 +135,12 @@ def test_bracketed_ipv6_passes_validation(monkeypatch):
         seen.update(kw, backend=backend)
 
     monkeypatch.setattr(dist, "init_process_group", fake_init)
+    monkeypatch.setattr(mesh_mod, "_make_control_group",
+                        lambda: seen.update(control=True))
     multihost_init("[::1]:8476", 1, 0, device="cpu")
     assert seen == {"backend": "gloo", "init_method": "tcp://[::1]:8476",
-                    "world_size": 1, "rank": 0}
+                    "world_size": 1, "rank": 0, "control": True,
+                    "timeout": datetime.timedelta(seconds=mesh_mod.CONTROL_TIMEOUT_S)}
 
 
 def test_unknown_device_is_refused():
@@ -192,31 +203,54 @@ def test_one_process_group_sorts_like_the_reference(tmp_path):
 
 
 _TWO = textwrap.dedent("""
-    import torch, torch.distributed as dist
+    import json
+    import numpy as np, torch, torch.distributed as dist
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch.ops.keys import codec_for
     from mpitest_tpu_torch.parallel import make_mesh, multihost_init
-    from mpitest_tpu_torch.parallel.mesh import CrossProcessMeshError
+    from mpitest_tpu_torch.parallel import mesh as mesh_mod
+    torch.set_num_threads(1)
     multihost_init("127.0.0.1:{port}", {nprocs}, {rank}, device="cpu")
     try:
         t = torch.tensor([{rank} + 1.0])
         dist.all_reduce(t)
         assert t.item() == 3.0, t
-        try:
-            make_mesh(devices=["cpu"] * 8)
-        except CrossProcessMeshError as e:
-            assert "needs the cross-process exchange; see ROADMAP" in str(e), e
-            print("REFUSED", {rank})
-        else:
-            raise AssertionError("a local-only mesh was built in a group of two")
+        # the default group is gloo, so it is the control group too
+        assert mesh_mod.control_group() is dist.group.WORLD
+        mesh = make_mesh(devices=["cpu"] * (2 + {rank}))   # 2 + 3 ranks
+        first = make_mesh(3, devices=["cpu"] * (2 + {rank}))
+        alone = make_mesh(2, devices=["cpu"] * (2 + {rank}))
+        x = np.random.default_rng(1).integers(-2**31, 2**31 - 1, 5000, dtype=np.int32)
+        res = mt.sort(x, mesh=mesh, return_result=True)
+        want = codec_for(x.dtype).encode(np.sort(x))[0].view(np.int32)
+        ok = all(np.array_equal(s[0].numpy(), want[a:b])
+                 for (_r, a, b), s in zip(res.addressable, res.shards))
+        print(json.dumps({{"owners": mesh.owners, "local": mesh.local_ranks,
+                          "size": mesh.size, "first": [first.owners, first.local_ranks],
+                          "alone": [alone.owners, alone.local_ranks,
+                                    alone.cross_process],
+                          "sorted": ok, "median": int(res.median_probe())}}))
     finally:
         dist.destroy_process_group()
 """)
 
 
 def test_group_of_two_processes_refuses_a_mesh(tmp_path):
-    """Two gloo processes each join the group (an all_reduce proves it),
-    and ``make_mesh`` raises the typed error in both."""
-    outs = _run_group(_TWO, 2, tmp_path)
-    assert [o.strip() for o in outs] == ["REFUSED 0", "REFUSED 1"]
+    """Two gloo processes each join the group (an all_reduce proves it) and
+    build one mesh of global ranks: process 0's two ranks, then process
+    1's three, each process driving its own; ``n_devices`` takes the first
+    global ranks (three span both processes, two lie in process 0 alone);
+    a radix sort over the uneven mesh gives each process its shards of the
+    sorted keys and the same median."""
+    outs = [json.loads(o.strip().splitlines()[-1]) for o in _run_group(_TWO, 2, tmp_path)]
+    want_median = int(np.sort(np.random.default_rng(1).integers(
+        -2**31, 2**31 - 1, 5000, dtype=np.int32))[2499])
+    for rank, got in enumerate(outs):
+        assert got["owners"] == [0, 0, 1, 1, 1] and got["size"] == 5
+        assert got["local"] == ([0, 1] if rank == 0 else [2, 3, 4])
+        assert got["first"] == [[0, 0, 1], [0, 1] if rank == 0 else [2]]
+        assert got["alone"] == [[0, 0], [0, 1] if rank == 0 else [], False]
+        assert got["sorted"] and got["median"] == want_median
 
 
 def test_make_mesh_outside_a_group_is_unchanged():
@@ -439,14 +473,39 @@ def test_prewarm_degrades_only_on_a_timed_out_build(monkeypatch):
 
 
 def test_make_mesh_in_a_group_of_several_raises_typed(monkeypatch):
-    """In-process view of the same rule: whatever devices are asked for,
-    a group of several processes gets the typed error, never a mesh."""
+    """In-process view of a group of four processes: ``make_mesh`` orders
+    the gathered device lists by process rank, this process (rank 2)
+    drives its own ranks, ``n_devices`` takes the first global ranks; an
+    NCCL default group gets a gloo control group beside it; and the sort
+    server, not ported across processes yet, raises the typed
+    ``CrossProcessMeshError``."""
     import torch.distributed as dist
+
+    from mpitest_tpu_torch.parallel import mesh as mesh_mod
+    from mpitest_tpu_torch.serve.server import ServerCore
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 4)
     monkeypatch.setattr(dist, "get_rank", lambda: 2)
-    with pytest.raises(CrossProcessMeshError, match="rank 2 of 4"):
-        make_mesh(devices=["cpu"] * 8)
+    lists = [["cpu"], ["cpu", "cpu"], ["cpu"] * 3, ["cpu"]]
+    monkeypatch.setattr(mesh_mod, "gather_objects", lambda obj: lists)
+    mesh = make_mesh(devices=["cpu"] * 3)
+    assert mesh.owners == (0, 1, 1, 2, 2, 2, 3) and mesh.process == 2
+    assert mesh.local_ranks == (3, 4, 5) and mesh.cross_process
+    assert make_mesh(7, devices=["cpu"] * 3).size == 7
+    with pytest.raises(ValueError, match="all 4 processes"):
+        make_mesh(4, devices=["cpu"] * 3)        # processes 0..2 only
+    with pytest.raises(ValueError, match="requested 8 devices, have 7"):
+        make_mesh(8, devices=["cpu"] * 3)
+    made = []
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    monkeypatch.setattr(dist, "new_group", lambda **kw: made.append(kw) or "control")
+    monkeypatch.setattr(mesh_mod, "_CONTROL", {})
+    mesh_mod._make_control_group()
+    assert made == [{"backend": "gloo",
+                     "timeout": datetime.timedelta(seconds=mesh_mod.CONTROL_TIMEOUT_S)}]
+    assert mesh_mod._CONTROL["group"] == "control"
+    with pytest.raises(CrossProcessMeshError, match="not ported yet"):
+        ServerCore(mesh)
     with pytest.raises(CrossProcessMeshError):
-        make_mesh(1, devices=["cpu"])
+        ServerCore()
