@@ -234,6 +234,22 @@ Phases, each failing loudly (any exception exits non-zero):
              host-staged transport; it prints the walls beside the
              single-controller's, the control-group seconds, the handle
              mapping, the barrier waits and K7's device ms.
+             (q) the sort server across two processes on the one card
+             (``serve_crossprocess_phase``): two children join a gloo
+             group and each serves ``ServerCore()`` over the global mesh
+             (prewarmed, watchdog on, 8 ms window, its own trace,
+             flight-recorder and spill paths) through a ``SortServer``
+             and a ``TelemetryServer``; this process runs the mixed load
+             (four clients to each server, every reply equal to
+             ``np.sort``, p50/p99 per server), int64 and float32 at the
+             packed maximum (2^16) to each, a solo int32 2^26 request to
+             server 0 only (``internal`` within 5 s while server 1
+             serves, both ``/healthz`` 200), a record request (int32
+             2^20, 8 payload bytes: ``ok`` from server 0, ``bad_request``
+             from server 1) and a spill request (``internal``) to each;
+             ``/varz`` shows the two-rank mesh and no kernel launched by
+             the served requests, and no control-group round runs after
+             the cores are built.
              Every clean phase (1-4) asserts that no Tracer it created
              holds a fault or ladder counter (``LADDER_COUNTERS``).
              Every output equals its oracle (np.sort, or torch.sort on the
@@ -273,7 +289,8 @@ Phases, each failing loudly (any exception exits non-zero):
              its wall, phase 3j's notes and wall, phase 3m's, 3n's (with
              the spawned mix's p50/p99), 3o's and 3p's walls (3p's
              cross-process walls beside the single-controller ones, and
-             K7 across processes), and the smoke's total wall.
+             K7 across processes), 3q's wall and per-server p50/p99, and
+             the smoke's total wall.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2
@@ -1794,6 +1811,297 @@ def crossprocess_phase(log, legs=CROSSPROCESS_LEGS, reps: int = 2,
     raise AssertionError("3p: unreachable")
 
 
+#: Phase 3q's sizes: the mixed load (``bench/serve_load.py``'s shape, as
+#: phase 3m's: closed-loop clients, 2^7-2^10 int32 keys), half the
+#: clients and requests to each of the two servers; the packed maximum
+#: (``SORT_SERVE_BATCH_KEYS``, 2^16 keys) of int64 and float32; the
+#: one-sided solo request (int32 2^26, the largest the default
+#: ``SORT_SERVE_MAX_BYTES`` admits); the record request (int32 2^20 with
+#: 8 payload bytes); the spill request (int32 2^26 + 2^20, past that
+#: bound).
+SERVE_CROSS_SIZES = {"mix_requests": 160, "clients": 8, "packed": 1 << 16,
+                     "solo": 1 << 26, "records": 1 << 20, "record_bytes": 8,
+                     "spill": (1 << 26) + (1 << 20)}
+
+_SERVE_CROSS_CHILD = """
+import json, os, sys, threading, time
+rank, port, root, card = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4] == "1"
+# each process its own trace, flight-recorder and spill paths
+mine = os.path.join(root, f"process{rank}")
+os.makedirs(mine, exist_ok=True)
+os.environ.update(SORT_TRACE=os.path.join(mine, "trace.jsonl"),
+                  SORT_FLIGHT_RECORDER_DIR=os.path.join(mine, "flight"),
+                  SORT_SPILL_DIR=os.path.join(mine, "spill"),
+                  SORT_SERVE_BATCH_WINDOW_MS="8")
+import torch, torch.distributed as dist
+from mpitest_tpu_torch.ops import exchange
+from mpitest_tpu_torch.parallel import make_mesh, multihost_init
+from mpitest_tpu_torch.parallel import mesh as mesh_mod
+from mpitest_tpu_torch.serve.server import ServerCore, SortServer
+from mpitest_tpu_torch.serve.telemetry import TelemetryServer
+
+t0 = time.perf_counter()
+multihost_init(f"127.0.0.1:{port}", 2, rank, **({} if card else {"device": "cpu"}))
+out = {"init_s": time.perf_counter() - t0, "backend": dist.get_backend()}
+rounds = []
+try:
+    t0 = time.perf_counter()
+    # every process builds its core together: make_mesh() gathers the
+    # processes' devices over the control group
+    core = ServerCore() if card else ServerCore(make_mesh(devices=["cpu"]))
+    out["core_s"] = time.perf_counter() - t0
+    mesh = core.mesh
+    assert mesh.cross_process and mesh.size == 2 and mesh.local_ranks == (rank,), mesh
+    assert core.device == mesh.devices[rank], (core.device, mesh)
+    t0 = time.perf_counter()
+    core.prewarm()
+    out["prewarm_s"] = time.perf_counter() - t0
+    core.start_watchdog()
+    # every control-group round from here on is counted: serving makes none
+    gather = mesh_mod._all_gather
+    mesh_mod._all_gather = lambda step, obj: rounds.append(step) or gather(step, obj)
+    srv = SortServer(core, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    tel = TelemetryServer(core, "127.0.0.1", 0)
+    tel.start()
+    print(f"LISTENING {srv.bound_port} {tel.bound_port}", flush=True)
+    sys.stdin.readline()        # the parent's stop line, or its end
+    t0 = time.perf_counter()
+    srv.shutdown()
+    srv.server_close()
+    out["drained"] = core.drain_and_stop(timeout=60)
+    tel.shutdown()
+    tel.server_close()
+    out["shutdown_s"] = time.perf_counter() - t0
+    out["control_rounds"] = list(rounds)
+    out["breaker"] = core.breaker.snapshot()
+    out["flight"] = sorted(os.listdir(os.environ["SORT_FLIGHT_RECORDER_DIR"]))
+finally:
+    exchange.release_ipc()
+    dist.destroy_process_group()
+print("SERVECROSS " + json.dumps(out), flush=True)
+"""
+
+
+def serve_crossprocess_phase(sizes: dict, log, *, card: bool = True,
+                             attempts: int = 3) -> dict:
+    """Phase 3q: the sort server across two processes on the one card.
+
+    Two children join a group on a free port (``multihost_init``: gloo,
+    the processes share the card), and each builds ``ServerCore()`` over
+    the global mesh, prewarms it, starts its watchdog, a ``SortServer``
+    (8 ms window) and a ``TelemetryServer``, with trace, flight-recorder
+    and spill paths of its own.  This process is the clients: the mixed
+    load, half the clients to each server (every reply equal to
+    ``np.sort``; p50/p99 per server); int64 and float32 at the packed
+    maximum to each (batched, one bucket of 2^16); a solo request to
+    server 0 only, ``internal`` within 5 s while server 1 serves a load,
+    neither ``/healthz`` turning 503, no kernel launched; a record request
+    to each (``ok`` from server 0, the stable permutation, and
+    ``bad_request`` from server 1); a spill request to each
+    (``internal``).  Then ``/varz`` of each: the global mesh, no kernel
+    launch in the served requests.  Each child drains on the parent's stop
+    line, with no control-group round counted after its core was built,
+    its breaker closed and its group ended in a ``finally``.  Returns the
+    timings and the children's readings."""
+    import signal
+    import socket
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from mpitest_tpu_torch.report import percentile
+    from mpitest_tpu_torch.selftest.spawned import run_load
+    from mpitest_tpu_torch.serve.client import ServeClient
+
+    host = "127.0.0.1"
+    t_phase = time.perf_counter()
+
+    def get(url: str) -> tuple[int, dict]:
+        try:
+            with urllib.request.urlopen(url, timeout=30) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def load(port: int, requests: int, clients: int, seed: int) -> dict:
+        got = run_load(port, requests, clients, seed)
+        if got["bad"] or got["statuses"] != {"ok": requests}:
+            raise AssertionError(f"3q load on port {port}: statuses {got['statuses']}, "
+                                 f"{len(got['bad'])} replies differ from np.sort")
+        return {"wall_s": got["wall_s"], "p50_ms": 1e3 * percentile(got["lat"], 50),
+                "p99_ms": 1e3 * percentile(got["lat"], 99)}
+
+    def one(port: int, x, **kw):
+        with ServeClient(host, port, timeout=300) as c:
+            t0 = time.perf_counter()
+            r = c.sort(x, **kw)
+            return r, time.perf_counter() - t0
+
+    def serve(ports: list[int], tels: list[int]) -> dict:
+        res: dict = {}
+        half = sizes["clients"] // 2
+        for r, port in enumerate(ports):      # warm-up, as phase 3m's
+            load(port, max(16, half), half, 1000 + r)
+        mix: dict = {}
+        ts = [threading.Thread(target=lambda r=r, p=p: mix.__setitem__(
+                  r, load(p, sizes["mix_requests"] // 2, half, 3030 + 100 * r)))
+              for r, p in enumerate(ports)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if len(mix) != 2:
+            raise AssertionError("3q: a mixed-load thread failed")
+        res["mix"] = [mix[0], mix[1]]
+        rng = np.random.default_rng(77)
+        for dtype in ("int64", "float32"):
+            n = sizes["packed"]
+            x = (rng.standard_normal(n).astype(np.float32) if dtype == "float32" else
+                 rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64))
+            for r, port in enumerate(ports):
+                rep, dt = one(port, x)
+                if not (rep.ok and rep.header.get("batched")
+                        and rep.header.get("bucket") == n
+                        and rep.arr.tobytes() == np.sort(x).tobytes()):
+                    raise AssertionError(f"3q packed {dtype} on server {r}: {rep.header}")
+                res[f"packed_{dtype}_{r}_s"] = dt
+        # a solo request to server 0 only, while server 1 serves a load
+        x = rng.integers(-2**31, 2**31 - 1, sizes["solo"], dtype=np.int32)
+        side: dict = {}
+        t = threading.Thread(target=lambda: side.update(load(ports[1], 40, 2, 4040)))
+        t.start()
+        rep, dt = one(ports[0], x, algo="radix")
+        t.join()
+        if rep.ok or rep.error != "internal" or "RuntimeError" not in rep.detail:
+            raise AssertionError(f"3q one-sided solo: {rep.header}")
+        if dt >= 5.0:
+            raise AssertionError(f"3q one-sided solo took {dt:.3f} s (limit 5 s)")
+        if "p50_ms" not in side:
+            raise AssertionError("3q: server 1's load during the solo request failed")
+        res["solo_s"] = dt
+        res["during_solo"] = side
+        for r, tport in enumerate(tels):
+            code, health = get(f"http://{host}:{tport}/healthz")
+            if code != 200 or health.get("breaker") != "closed":
+                raise AssertionError(f"3q /healthz of server {r}: {code} {health}")
+        del x
+        # a record request to each: rank 0 lies in process 0
+        n = sizes["records"]
+        x = rng.integers(-2**31, 2**31 - 1, n, dtype=np.int32)
+        pay = rng.integers(0, 256, (n, sizes["record_bytes"]), dtype=np.uint8)
+        order = np.argsort(x, kind="stable")
+        for r, port in enumerate(ports):
+            rep, dt = one(port, x, payload=pay)
+            res[f"records_{r}_s"] = dt
+            if r == 0:
+                if not (rep.ok and np.array_equal(rep.arr, x[order])
+                        and np.array_equal(rep.payload, pay[order])):
+                    raise AssertionError(f"3q records on server 0: {rep.header}")
+            elif rep.ok or rep.error != "bad_request":
+                raise AssertionError(f"3q records on server 1: {rep.header}")
+        del x, pay, order
+        # a spill request to each: past the byte bound, refused as a solo one
+        x = rng.integers(-2**31, 2**31 - 1, sizes["spill"], dtype=np.int32)
+        for r, port in enumerate(ports):
+            rep, dt = one(port, x)
+            res[f"spill_{r}_s"] = dt
+            if rep.ok or rep.error != "internal":
+                raise AssertionError(f"3q spill on server {r}: {rep.header}")
+        del x
+        res["varz"] = []
+        for r, tport in enumerate(tels):
+            code, varz = get(f"http://{host}:{tport}/varz")
+            launched = {k: v for k, v in varz["kernels"]["launches"].items() if v}
+            if code != 200 or varz["mesh"]["devices"] != 2 or launched:
+                raise AssertionError(f"3q /varz of server {r}: {code} {varz['mesh']} "
+                                     f"launches {launched}")
+            res["varz"].append({"mesh": varz["mesh"], "requests": varz["requests"],
+                                "batcher": varz["batcher"],
+                                "launches": varz["kernels"]["launches"]})
+        return res
+
+    for attempt in range(attempts):
+        with socket.socket() as s:
+            s.bind((host, 0))
+            port = s.getsockname()[1]
+        with tempfile.TemporaryDirectory() as root:
+            errs = [open(os.path.join(root, f"stderr{r}"), "w+") for r in range(2)]
+            t0 = time.perf_counter()
+            procs = [subprocess.Popen([sys.executable, "-c", _SERVE_CROSS_CHILD, str(r),
+                                       str(port), root, "1" if card else "0"],
+                                      stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                      stderr=errs[r], text=True,
+                                      cwd=os.path.dirname(os.path.abspath(__file__)))
+                     for r in range(2)]
+            # a child that never answers is killed; its pipes then end
+            killer = threading.Timer(600, lambda: [p.kill() for p in procs])
+            killer.start()
+            try:
+                lines = [next((ln for ln in iter(p.stdout.readline, "")
+                               if ln.startswith("LISTENING ")), "") for p in procs]
+                start_s = time.perf_counter() - t0
+                res = None
+                if all(ln.startswith("LISTENING ") for ln in lines):
+                    ports = [int(ln.split()[1]) for ln in lines]
+                    tels = [int(ln.split()[2]) for ln in lines]
+                    try:
+                        res = serve(ports, tels)
+                    finally:
+                        for p in procs:
+                            with contextlib.suppress(OSError):
+                                p.stdin.write("stop\n")
+                                p.stdin.flush()
+                outs = [p.communicate(timeout=120)[0] for p in procs]
+            finally:
+                killer.cancel()
+                for p in procs:
+                    if p.poll() is None:
+                        p.send_signal(signal.SIGKILL)
+                        p.wait()
+            wall = time.perf_counter() - t0
+            err_text = []
+            for f in errs:
+                f.seek(0)
+                err_text.append(f.read())
+                f.close()
+        if res is not None and all(p.returncode == 0 for p in procs):
+            children = [json.loads(next(ln for ln in o.splitlines()
+                                        if ln.startswith("SERVECROSS ")).split(" ", 1)[1])
+                        for o in outs]
+            for r, c in enumerate(children):
+                if (c["control_rounds"] or not c["drained"] or c["shutdown_s"] > 30
+                        or c["breaker"]["state"] != "closed" or c["breaker"]["trips"]):
+                    raise AssertionError(f"3q child {r}: {c}")
+                if not any("serve_internal_RuntimeError" in f for f in c["flight"]):
+                    raise AssertionError(f"3q child {r}: no refusal in the flight dumps "
+                                         f"{c['flight']}")
+            res.update(children=children, start_s=start_s, wall_s=wall,
+                       phase_wall_s=time.perf_counter() - t_phase)
+            log(f"[3q] two servers across processes: start {start_s:.3f} s (core "
+                + ", ".join(f"{c['core_s']:.3f}" for c in children) + " s, prewarm "
+                + ", ".join(f"{c['prewarm_s']:.3f}" for c in children) + " s); mixed load "
+                + "; ".join(f"server {r} p50 {m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} ms "
+                            f"over {sizes['mix_requests'] // 2} requests"
+                            for r, m in enumerate(res["mix"]))
+                + f"; one-sided solo int32 2^{sizes['solo'].bit_length() - 1} internal in "
+                f"{res['solo_s']:.3f} s (server 1 meanwhile p50 "
+                f"{res['during_solo']['p50_ms']:.3f} ms); records "
+                f"{res['records_0_s']:.3f} s ok / {res['records_1_s']:.3f} s bad_request; "
+                f"spill internal in {res['spill_0_s']:.3f} / {res['spill_1_s']:.3f} s; "
+                f"launches in the servers {[v['launches'] for v in res['varz']]}; "
+                f"shutdown " + ", ".join(f"{c['shutdown_s']:.3f}" for c in children)
+                + f" s; children {wall:.3f} s")
+            return res
+        errs_joined = "\n".join(e[-3000:] for e in err_text)
+        if "address already in use" not in errs_joined.lower() or attempt == attempts - 1:
+            raise AssertionError(f"3q: a server child failed (rc "
+                                 f"{[p.returncode for p in procs]}):\n{errs_joined}")
+    raise AssertionError("3q: unreachable")
+
+
 def main() -> int:
     import torch
 
@@ -3083,6 +3391,16 @@ def main() -> int:
              lambda: cross.update(crossprocess_phase(log)))
     log(f"[main] phase 3p (cross-process radix) wall {cross['phase_wall_s']:.3f} s")
 
+    # ----------------- 3q. the sort server across two processes on the card
+    # the served requests launch no kernel: the children's counts start at
+    # 0 and their /varz is read after the last request
+    torch.cuda.empty_cache()   # the server processes allocate on the same card
+    serve_cross = serve_crossprocess_phase(SERVE_CROSS_SIZES, log)
+    assert_clean("3q")
+    log(f"[main] phase 3q (the server across processes) wall "
+        f"{serve_cross['phase_wall_s']:.3f} s, launches in the servers "
+        f"{[v['launches'] for v in serve_cross['varz']]}")
+
     # ---------------------------------------------------------- 4. timing
     entries = []
 
@@ -3439,6 +3757,14 @@ def main() -> int:
                     for r, c in enumerate(cross["children"]))
         + f" by events, window {statistics.median(cross['children'][0]['k7']['window_ms']):.4f}"
         + f") | card {card}")
+    log(f"[timing] phase 3q wall {serve_cross['phase_wall_s']:.3f} s (two servers across "
+        f"processes, mixed load " + ", ".join(
+            f"server {r} p50 {m['p50_ms']:.3f} ms p99 {m['p99_ms']:.3f} ms"
+            for r, m in enumerate(serve_cross["mix"]))
+        + f"; beside 3m's p50 {serve_timings['p50_ms']:.3f} ms p99 "
+        f"{serve_timings['p99_ms']:.3f} ms and 3n's p50 {spawned['wire']['p50_ms']:.3f} ms "
+        f"p99 {spawned['wire']['p99_ms']:.3f} ms; one-sided solo internal in "
+        f"{serve_cross['solo_s']:.3f} s) | card {card}")
     for note in slice_notes:
         log(f"[timing] {note} | card {card}")
     for note in tele_notes:

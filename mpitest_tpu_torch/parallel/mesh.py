@@ -100,11 +100,6 @@ def _normalize(d: torch.device | str) -> torch.device:
     return d
 
 
-class CrossProcessMeshError(RuntimeError):
-    """An entry point that the port does not run across processes yet was
-    called inside a group of several processes (see ROADMAP)."""
-
-
 def in_group() -> bool:
     """True inside an initialised ``torch.distributed`` group of several
     processes."""

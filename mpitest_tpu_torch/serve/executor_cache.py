@@ -73,7 +73,7 @@ class ExecutorCache:
     word count and bucket only, so int32 and uint32 share one (through the
     memoized builder) while keeping distinct entries and telemetry.
 
-    ``device`` is where entries warm up: the server's mesh's first rank.
+    ``device`` is where entries warm up: the server process's first rank.
     Without one it is the card (``models/api.resolve_device``), never the
     CPU by default."""
 

@@ -65,11 +65,23 @@ On the card: the core's mesh (default ``make_mesh()``, the card; a
 caller may pass CPU ranks) decides where every dispatch runs.  A solo
 request reaches the hand-written kernels through ``sort()`` (K1, or K2
 and K3, on one rank; K6 and K7 on several); a batched request runs the
-packed ``torch.sort`` on the mesh's first rank.  Only the batcher's
+packed ``torch.sort`` on this process's first rank.  Only the batcher's
 dispatch thread touches torch: handler threads frame bytes and build
 numpy arrays.  A kernel that fails to build or launch is never caught
 and replaced by plain PyTorch: the request gets ``internal`` and the
 flight recorder names the error.
+
+Across processes (``parallel.multihost_init``, then ``ServerCore()`` and
+a :class:`SortServer` in every process of the group): each process's
+core serves its own clients over the global mesh.  Batched requests run
+on the process's own first rank and touch no other process.  A record
+request runs on the mesh's rank 0: ``ok`` in the process that owns it,
+``bad_request`` in the others.  A solo key request and a spill request
+get ``internal`` (``RuntimeError``) at once, before any control-group
+round: their result would lie on other processes' ranks, where the
+reference's sort runs and then fails to fetch it.  Requests are never
+coordinated between the processes, so a request that reaches one
+server only is answered without waiting for a peer.
 """
 
 from __future__ import annotations
@@ -176,21 +188,17 @@ class ServerCore:
 
     def __init__(self, mesh: "Mesh | None" = None,
                  tracer: "Tracer | None" = None) -> None:
-        from mpitest_tpu_torch.parallel.mesh import (
-            CrossProcessMeshError,
-            in_group,
-            make_mesh,
-        )
+        from mpitest_tpu_torch.parallel.mesh import make_mesh
         from mpitest_tpu_torch.utils.trace import Tracer as _Tracer
 
-        if mesh.cross_process if mesh is not None else in_group():
-            raise CrossProcessMeshError(
-                "the sort server across processes is not ported yet (see "
-                "ROADMAP); run one server per process on a mesh of its own")
-        # the card unless the caller passes ranks; no card raises here
+        # the card unless the caller passes ranks; no card raises here.
+        # Inside a group of several processes make_mesh() gathers every
+        # process's devices over the control group: every process of the
+        # group constructs its core together.
         self.mesh = mesh if mesh is not None else make_mesh()
-        #: where a packed batch and the cache's warm-ups run
-        self.device = self.mesh.devices[0]
+        #: where a packed batch and the cache's warm-ups run: this
+        #: process's first rank (the mesh's first may be another's)
+        self.device = self.mesh.local_devices[0]
         self.tracer = tracer or _Tracer()
         trace_path = knobs.get("SORT_TRACE")
         if trace_path and self.tracer.spans.stream_path is None:
@@ -236,7 +244,8 @@ class ServerCore:
                 burn_rate=knobs.get("SORT_ALERT_BURN_RATE"))
             self.tracer.spans.observers.append(self.sentinel)
         #: on-demand torch.profiler captures around dispatches.
-        self.profiler = ProfileHook(self.tracer.spans, self.mesh.devices)
+        self.profiler = ProfileHook(self.tracer.spans,
+                                    self.mesh.local_devices)
         # gauge publication rides the admission lock (see
         # AdmissionControl.on_change) so exported in-flight counts can
         # never be left stale by interleaved handler threads
@@ -320,7 +329,7 @@ class ServerCore:
         """Warm the executor cache (``SORT_SERVE_PREWARM`` /
         ``SORT_SERVE_SHAPE_BUCKETS``): build and load the kernels when
         the mesh is on a card, then run each bucket's packed sort once on
-        the mesh's first rank; returns entries ensured."""
+        this process's first rank; returns entries ensured."""
         if knobs.get("SORT_SERVE_PREWARM") == "off":
             return 0
         log = log or (lambda m: None)
@@ -348,6 +357,16 @@ class ServerCore:
         if req.faults is not None:
             reg = faults.FaultRegistry(req.faults, seed=faults.faults_seed())
         try:
+            if self.mesh.cross_process and (req.spill or not req.payload_width):
+                # refused before any control-group round: a peer that
+                # never got this request would leave the round waiting
+                # out its timeout
+                raise RuntimeError(
+                    "a solo or spilled sort on a mesh across processes "
+                    "leaves its result on ranks of other processes, which "
+                    "cannot come back to this process's client; run a "
+                    "server per process on a mesh of its own to serve "
+                    "requests above SORT_SERVE_BATCH_KEYS")
             with spanlib.trace_context(trace_id=req.trace_id), \
                     self.profiler.maybe_capture():
                 if reg is not None:
@@ -459,8 +478,8 @@ class ServerCore:
                         [r.arr for r in reqs], dtype)
                     exe = self.cache.get_packed(batch.bucket, dtype.name,
                                                 len(batch.words))
-                    # on the mesh's first rank: the card for a card core,
-                    # the CPU for a core on CPU ranks
+                    # on this process's first rank: the card for a card
+                    # core, the CPU for a core on CPU ranks
                     sorted_words = segmented.run_packed(
                         batch, exe, device=self.device)
                 reg = faults.for_run()

@@ -76,6 +76,14 @@ _KEYS = textwrap.dedent("""
         except Exception as e:
             return type(e).__name__
         return "ok"
+
+
+    def served(core, x):
+        # the status of a server core's reply, or the class it raised
+        try:
+            return core().execute(x)[0]
+        except Exception as e:
+            return type(e).__name__
 """)
 
 _REF = textwrap.dedent("""
@@ -117,7 +125,7 @@ _REF = textwrap.dedent("""
         "records": attempt(lambda: mpitest_tpu.sort(x, payload=np.zeros((x.size, 4), np.uint8))),
         "external": attempt(lambda: external_sort(x, budget=1 << 14,
                                                   spill_dir=tempfile.mkdtemp())),
-        "server": attempt(lambda: ServerCore().execute(x))}
+        "server": served(ServerCore, x)}
     np.savez(os.path.join(out, f"ref_{rank}.npz"), **arrays)
     with open(os.path.join(out, f"ref_{rank}.json"), "w") as f:
         json.dump(meta, f, default=str)
@@ -175,7 +183,7 @@ _PORT = textwrap.dedent("""
                 x, payload=np.zeros((x.size, 4), np.uint8), mesh=make_mesh(devices=["cpu"]))),
             "external": attempt(lambda: external_sort(x, budget=1 << 14, mesh=meshes["2x4"],
                                                       spill_dir=tempfile.mkdtemp())),
-            "server": attempt(lambda: ServerCore(meshes["2x4"]).execute(x))}
+            "server": served(lambda: ServerCore(meshes["2x4"]), x)}
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(out, f"port_{rank}.npz"), **arrays)
@@ -302,16 +310,16 @@ def test_fetch_and_sample_raise_runtime_error_in_both(runs):
 def test_other_entry_points_across_processes(runs):
     """The record sort runs on the mesh's first rank (process 0 sorts,
     process 1 raises ``ValueError`` in both packages); the external sort
-    raises ``RuntimeError`` in both; the reference's server answers a
-    batched request, and the port raises ``CrossProcessMeshError`` for
-    its server until that is ported (ROADMAP)."""
+    raises ``RuntimeError`` in both; the server of each process answers a
+    batched request ``ok`` in both (``tests/test_torch_serve_crossprocess.py``
+    holds every reply)."""
     for r in range(2):
         ref = runs["ref", r][0]["entry_points"]
         port = runs["port", r][0]["entry_points"]
         want_records = "ok" if r == 0 else "ValueError"
         assert ref["records"] == port["records"] == port["records_default"] == want_records
         assert ref["external"] == port["external"] == "RuntimeError"
-        assert ref["server"] == "ok" and port["server"] == "CrossProcessMeshError"
+        assert ref["server"] == port["server"] == "ok"
         assert runs["port", r][0]["tensor_input_ok"]
 
 

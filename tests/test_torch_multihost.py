@@ -7,8 +7,8 @@ tests pass ``device="cpu"``; NCCL on a card of its own) and the gloo
 control group.  A group of one process sorts on the mesh built after it;
 in a group of several ``make_mesh`` builds one mesh of global ranks in
 process order (``tests/test_torch_crossprocess.py`` holds its sorts
-against the reference's), and the server, not ported across processes
-yet, raises the typed ``CrossProcessMeshError``.  ``ops/_build.py`` bounds every ``nvcc`` and
+against the reference's), and a server core on it batches on the
+process's own first rank.  ``ops/_build.py`` bounds every ``nvcc`` and
 never holds its lock across a build (the counterpart of the reference's
 bounded topology probe); a fake ``nvcc`` stands in for the compiler.
 """
@@ -35,7 +35,6 @@ from mpitest_tpu.parallel import multihost_init as ref_multihost_init
 from mpitest_tpu.parallel.mesh import make_mesh as ref_make_mesh
 from mpitest_tpu_torch.ops import _build
 from mpitest_tpu_torch.parallel import make_mesh, multihost_init
-from mpitest_tpu_torch.parallel.mesh import CrossProcessMeshError
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -475,10 +474,11 @@ def test_prewarm_degrades_only_on_a_timed_out_build(monkeypatch):
 def test_make_mesh_in_a_group_of_several_raises_typed(monkeypatch):
     """In-process view of a group of four processes: ``make_mesh`` orders
     the gathered device lists by process rank, this process (rank 2)
-    drives its own ranks, ``n_devices`` takes the first global ranks; an
-    NCCL default group gets a gloo control group beside it; and the sort
-    server, not ported across processes yet, raises the typed
-    ``CrossProcessMeshError``."""
+    drives its own ranks, ``n_devices`` takes the first global ranks and
+    one that leaves a process out raises typed; an NCCL default group gets
+    a gloo control group beside it; and the sort server on that mesh
+    batches on this process's first rank (global rank 3), profiles its
+    own ranks, and without a card cannot build the default mesh."""
     import torch.distributed as dist
 
     from mpitest_tpu_torch.parallel import mesh as mesh_mod
@@ -505,7 +505,17 @@ def test_make_mesh_in_a_group_of_several_raises_typed(monkeypatch):
     assert made == [{"backend": "gloo",
                      "timeout": datetime.timedelta(seconds=mesh_mod.CONTROL_TIMEOUT_S)}]
     assert mesh_mod._CONTROL["group"] == "control"
-    with pytest.raises(CrossProcessMeshError, match="not ported yet"):
-        ServerCore(mesh)
-    with pytest.raises(CrossProcessMeshError):
+    # each process's devices carry its rank as their index here, so the
+    # first rank of the mesh and of this process differ
+    lists = [["cpu:0"], ["cpu:1", "cpu:1"], ["cpu:2"] * 3, ["cpu:3"]]
+    mesh = make_mesh(devices=["cpu"] * 3)
+    core = ServerCore(mesh)
+    try:
+        assert core.device == mesh.devices[3] == torch.device("cpu", 2)
+        assert core.device != mesh.devices[0]
+        assert core.cache.device == core.device
+        assert core.profiler.devices == mesh.local_devices == (torch.device("cpu", 2),) * 3
+    finally:
+        core.drain_and_stop(timeout=10)
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
         ServerCore()
