@@ -336,7 +336,9 @@ def _device_hi_dup_sniff(hi: torch.Tensor) -> bool:
     s_eff = (n - 1) // stride + 1
     start = (n - 1) - (s_eff - 1) * stride
     samp = torch.sort(hi[start: start + (s_eff - 1) * stride + 1: stride]).values
-    return bool(torch.any(samp[1:] == samp[:-1]))
+    dup = torch.any(samp[1:] == samp[:-1])
+    with spans.host_sync("encode.dup"):
+        return bool(dup)
 
 
 #: Engine names of the 64-bit routes, by the reference's codes.
@@ -406,7 +408,11 @@ def _local_pair_sort(x: Any, is_device: bool, codec: KeyCodec,
     if is_device:
         with tracer.phase("encode"):
             words = codec.encode_torch(x.reshape(-1))
-            same = tuple(bool(torch.all(w == w[0])) for w in words)
+            same = []
+            for w in words:
+                flat = torch.all(w == w[0])
+                with spans.host_sync("encode.same"):
+                    same.append(bool(flat))
             dup = _device_hi_dup_sniff(words[0])
     else:
         with tracer.phase("encode"):
@@ -437,7 +443,8 @@ def _local_pair_sort(x: Any, is_device: bool, codec: KeyCodec,
     with tracer.phase("sort"):
         hi_s, lo_s, bad = _traced_call(tracer, "pair_sort", key,
                                        kernels.sort_two_words_bitonic, *words)
-        bad = bool(bad)
+        with spans.host_sync("pair.residual"):
+            bad = bool(bad)
     tracer.counters["local_engine"] = _PAIR_CODES[5 if bad and is_device else 4]
     if not bad:
         return (hi_s, lo_s)
@@ -835,7 +842,8 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
         words_np = None
         if is_device:
             if verify_on:
-                fp_in = vfy.fingerprint_device_input(x, dtype)
+                with tracer.phase("verify"):
+                    fp_in = vfy.fingerprint_device_input(x, dtype)
         else:
             # encode once: the fingerprint and the pair sort share the words
             with tracer.phase("encode"):
@@ -851,7 +859,8 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
     tracer.counters["local_engine"] = resolved
     if is_device:
         if verify_on:
-            fp_in = vfy.fingerprint_device_input(x, dtype)
+            with tracer.phase("verify"):
+                fp_in = vfy.fingerprint_device_input(x, dtype)
         with tracer.phase("sort"):
             out = _traced_call(
                 tracer, "local_device", (dtype.name, resolved, N, device.type),
@@ -1089,7 +1098,13 @@ def _device_diffs(words: Words) -> tuple[int, ...]:
     out = []
     for w in words:
         u = unsigned_order(w)
-        out.append((int(u.min()) ^ int(u.max())) & 0xFFFFFFFF)
+        lo = u.min()
+        with spans.host_sync("plan.diffs"):
+            lo = int(lo)
+        hi = u.max()
+        with spans.host_sync("plan.diffs"):
+            hi = int(hi)
+        out.append((lo ^ hi) & 0xFFFFFFFF)
     return tuple(out)
 
 
@@ -1125,7 +1140,9 @@ def _device_skew_sniff(shards: list[Words], n_valid: int, n_ranks: int) -> bool:
                  for r in range(n_ranks)]
         picks.append(torch.cat([p.to(dev0) for p in parts]))
     q = torch.sort(kernels._ordered_key(tuple(picks))).values[torch.from_numpy(qpos).to(dev0)]
-    return bool(torch.any(q[1:] == q[:-1]))
+    degenerate = torch.any(q[1:] == q[:-1])
+    with spans.host_sync("sample.skew"):
+        return bool(degenerate)
 
 
 def _deal(w: torch.Tensor, r: int, p: int, cap: int) -> torch.Tensor:
@@ -1375,7 +1392,8 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                                  (codec.n_words, n, oversample, n_ranks, dev_type),
                                  sample_sort.sample_probe_spmd, live_words(),
                                  n_ranks, oversample)
-            return m.cpu().numpy()
+            with spans.host_sync("probe.counts"):
+                return m.cpu().numpy()
 
     def negotiate_counts(kind: str, db: int | None = None) -> np.ndarray:
         """The count probe; one re-stage (and re-probe) when the per-peer
@@ -1442,7 +1460,8 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                 # the reference's dispatch consumes donated words: drop them
                 # (this also stands in for its exchange_loop on_overflow)
                 mark_dead()
-                max_cnt = int(max_cnt)
+                with spans.host_sync("dispatch.max_cnt"):
+                    max_cnt = int(max_cnt)
             last_need[0] = max_cnt
             tracer.count("exchange_bytes",
                          passes * n_ranks * (n_ranks - 1) * c * 4 * codec.n_words)
@@ -1524,7 +1543,8 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
                         pack=eff_pack, engine=spmd_engine, exchange_engine=eng),
                     n=n, cap=c, ranks=n_ranks), on_retry=mark_dead)
                 mark_dead()
-                max_cnt = int(max_cnt)
+                with spans.host_sync("dispatch.max_cnt"):
+                    max_cnt = int(max_cnt)
             last_need[0] = max_cnt
             tracer.count("exchange_bytes",
                          n_ranks * (n_ranks - 1) * c * 4 * codec.n_words)
@@ -1543,8 +1563,12 @@ def _sort_mesh(x: Any, algorithm: str, mesh: Mesh, tracer: Tracer,
         if plan is not None:
             plan.actual("cap", cap=cap, need=last_need[0],
                         peer_recv_bytes=(last_need[0] or 0) * 4 * codec.n_words)
+        host_counts = []
+        for c in counts:
+            with spans.host_sync("result.counts"):
+                host_counts.append(int(c))
         return DistributedSortResult(
-            (), N, dtype, counts=np.asarray([int(c) for c in counts]),
+            (), N, dtype, counts=np.asarray(host_counts),
             shard_slots=n_ranks * cap, shards=tuple(out))
 
     def run_host() -> tuple[np.ndarray, ...]:

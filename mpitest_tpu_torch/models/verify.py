@@ -39,6 +39,7 @@ import torch
 
 from mpitest_tpu_torch.ops.keys import codec_for, unsigned_order
 from mpitest_tpu_torch.parallel import mesh as mesh_mod
+from mpitest_tpu_torch.utils import spans
 
 if TYPE_CHECKING:
     from collections.abc import Sequence
@@ -122,13 +123,16 @@ def _xor_reduce(w: torch.Tensor) -> int:
         if n % 2:
             folded[0] ^= w[n - 1]
         w = folded
-    return int(w[0]) & _U32
+    with spans.host_sync("verify.xor"):
+        return int(w[0]) & _U32
 
 
 def _sum32(w: torch.Tensor) -> int:
     """Wrapping uint32 sum: the signed int32 sum differs from the unsigned
     one by a multiple of 2^32, and int64 cannot overflow below 2^32 keys."""
-    return int(w.sum(dtype=torch.int64)) & _U32
+    total = w.sum(dtype=torch.int64)
+    with spans.host_sync("verify.sum"):
+        return int(total) & _U32
 
 
 def _fold(words: "tuple[torch.Tensor, ...]", n_valid: int) -> Fingerprint:
@@ -156,7 +160,9 @@ def is_sorted_words(words: "tuple[torch.Tensor, ...]") -> bool:
         a, b = u[:-1], u[1:]
         lt |= eq & (a < b)
         eq &= a == b
-    return bool(torch.all(lt | eq))
+    ok = torch.all(lt | eq)
+    with spans.host_sync("verify.sorted"):
+        return bool(ok)
 
 
 def fingerprint_device(shards: "list[tuple[torch.Tensor, ...]]",
@@ -192,7 +198,11 @@ def _fold_shards(shards: "list[tuple[torch.Tensor, ...]]", valid: "list[int]",
 def _key_at(words: "tuple[torch.Tensor, ...]", i: int) -> "tuple[int, ...]":
     """Key ``i`` as a tuple of uint32 values, msw first (tuples compare
     lexicographically)."""
-    return tuple(int(w[i]) & _U32 for w in words)
+    out = []
+    for w in words:
+        with spans.host_sync("verify.key_at"):
+            out.append(int(w[i]) & _U32)
+    return tuple(out)
 
 
 def _valid_counts(res: "DistributedSortResult") -> "list[int]":

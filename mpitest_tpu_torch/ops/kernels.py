@@ -20,6 +20,7 @@ import torch
 
 from mpitest_tpu_torch.ops import bitonic, radix
 from mpitest_tpu_torch.ops.keys import SIGN_BIT, unsigned_order
+from mpitest_tpu_torch.utils import spans
 
 Words = tuple[torch.Tensor, ...]
 
@@ -67,7 +68,9 @@ def local_sort(words: Words, engine: str = "lax",
         return (bitonic.bitonic_sort_u32(words[0]),)
     if engine == "bitonic" and len(words) == 2:
         hi_s, lo_s, bad = sort_two_words_bitonic(*words)
-        if bool(bad):
+        with spans.host_sync("pair.residual"):
+            bad = bool(bad)
+        if bad:
             return _lax_sort(words, stable=False)
         return (hi_s, lo_s)
     return _lax_sort(words, stable=True)

@@ -23,8 +23,17 @@ to the host (``int(max_cnt)``, the verifier's verdict, the decode).  The
 reference has the same semantics, since JAX dispatch is asynchronous too.
 Tracing adds no ``torch.cuda.synchronize()``, no ``.item()`` and no
 other host read: a span that synchronised would change what it measures.
-Per-kernel device time is ``SORT_PROFILE``'s job
-(``utils/trace.torch_profile``).
+
+Device time: while a ``torch.profiler`` records (``SORT_PROFILE``,
+``utils/trace.torch_profile``, or any caller's profiler), every timed
+span is also a ``record_function`` range of the same name, on the
+profiler's clock, so each kernel and copy in the trace can be traced
+back through its launch to the spans that enclosed it.  With no profiler
+recording a span costs one flag check more.  :func:`host_sync` marks the
+program's device-to-host reads: each adds ``host_syncs`` and
+``host_sync_s`` (wall seconds) to the innermost open span, always, and
+under a profiler opens a ``host_sync:<what>`` range, where the device's
+idle time after the read shows.
 
 Collectives and passes: the port has no trace time, so
 ``parallel/collectives.py`` and the distributed sorts emit their point
@@ -54,6 +63,8 @@ import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Iterator
+
+from torch.autograd import profiler as _autograd_profiler
 
 from mpitest_tpu_torch.utils import knobs
 
@@ -155,6 +166,34 @@ def add_to_open_span(**amounts: float) -> None:
     log = current_log()
     if log is not None:
         log.add_to_open(**amounts)
+
+
+def _open_range(name: str) -> "_autograd_profiler.record_function | None":
+    """A ``record_function`` range ``name``, entered, while a profiler
+    records; None (and no dispatcher call) otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    rf = _autograd_profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+@contextmanager
+def host_sync(what: str) -> Iterator[None]:
+    """Mark a device-to-host read (``int(t)``, ``bool(t)``, ``.cpu()``, …)
+    inside the block: the host waits there until the device's queue has
+    drained.  Adds ``host_syncs=1`` and ``host_sync_s`` (the block's wall
+    seconds) to the innermost open span of the active log, and opens a
+    ``host_sync:<what>`` range while a profiler records."""
+    rf = _open_range(f"host_sync:{what}")
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        if rf is not None:
+            rf.__exit__(None, None, None)
+        add_to_open_span(host_syncs=1, host_sync_s=dt)
 
 
 def maybe_span(
@@ -323,9 +362,13 @@ class SpanLog:
             outermost = len(self._stack) == 1
         if outermost:
             _ACTIVE.append(self)
+        rf = None
         try:
+            rf = _open_range(name)
             yield s
         finally:
+            if rf is not None:
+                rf.__exit__(None, None, None)
             s.dt = time.perf_counter() - s.t0
             with self._lock:
                 self._stack.pop()
@@ -396,20 +439,3 @@ class SpanLog:
         except Exception:  # noqa: BLE001 — the host lane stands alone
             pass
         return {"traceEvents": events, "displayTimeUnit": "ms"}
-
-    # -- aggregation ----------------------------------------------------
-    def collective_totals(self) -> dict[str, dict[str, float]]:
-        """Per-collective ``{calls, bytes, seconds}`` keyed by the comm.h
-        name (:data:`MPI_EQUIV`), the schema of the native backends'
-        ``COMM_STATS``.  ``seconds`` stays 0.0: collectives are point
-        events (their device time is not host-observable per call)."""
-        out: dict[str, dict[str, float]] = {}
-        for s in self.spans:
-            if s.name not in MPI_EQUIV:
-                continue
-            row = out.setdefault(
-                MPI_EQUIV[s.name], {"calls": 0, "bytes": 0, "seconds": 0.0})
-            row["calls"] += 1
-            row["bytes"] += int(s.attrs.get("bytes", 0))
-            row["seconds"] += s.dt
-        return out

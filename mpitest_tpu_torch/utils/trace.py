@@ -6,7 +6,10 @@ Keeps the reference's log prefixes (``[COMMON]``, ``[MASTER]``,
 wall timers, machine-readable ``counters`` and the nested span log.  Phase
 times are host wall time: a phase that launches CUDA work without reading
 a result back times the enqueue (``utils/spans.py``).  :func:`torch_profile`
-is the device-side view (``SORT_PROFILE``).
+is the device-side view (``SORT_PROFILE``): under it every phase and span
+is also a profiler range of its own name and every host read a
+``host_sync:<what>`` range, so the trace gives the device time each
+launched and the idle time after each read.
 """
 
 from __future__ import annotations
