@@ -35,10 +35,20 @@ Phases, each failing loudly (any exception exits non-zero):
              and 4096; every key tied),
              dup-heavy key words with 0xFFFFFFFF and 0x80000000, shuffled
              positions, against its plain version and np.lexsort; n = 4097
-             must raise.
+             must raise.  The verifier's scan (``verify_scan``,
+             :func:`verify_phase`): one plane of
+             2^30, eight shards of 2^25 (``verify_result`` clean, with a
+             broken seam between shards and with a duplicated key), two
+             planes of 2^27, planes one word past a 16-byte boundary (a
+             one-word head) and at different offsets (the one-word loop),
+             each with faults at the seams of its vectors, warps and blocks and
+             at the last pair, every row equal to the plain version's;
+             timed beside its bound and the PyTorch chain it replaces.
              Tolerance: exact (integer words; every byte must match).
 3. main    — three paths, each with the launch counts set to 0 just
-             before it and read just after:
+             before it and read just after; in (a), (b), (d) and (e) each
+             call makes one ``verify_scan`` a shard for its result check,
+             and one more a shard where its input is on the card:
              (a) ``mpitest_tpu_torch.sort()`` at full size with
              verification on: int32 2^28 from the host and resident on
              the card, int64 2^27, the constant-word and hi-duplication
@@ -2102,6 +2112,234 @@ def serve_crossprocess_phase(sizes: dict, log, *, card: bool = True,
     raise AssertionError("3q: unreachable")
 
 
+#: The verifier phase's sizes: one plane of the one-rank cell, the radix
+#: cell's eight shards, and two-word keys at K2's shape.
+VERIFY_SIZES = {"plane": 1 << 30, "shards": 8, "shard": 1 << 25, "pairs": 1 << 27,
+                "unaligned": 1 << 24}
+
+
+def verify_phase(log, card: str, sizes: dict = VERIFY_SIZES) -> dict:
+    """The verifier's scan (``verify_scan``, ``ops/fold.py``) on the card
+    against its plain version, then timed.
+
+    Checks, every row exact: one plane of ``sizes["plane"]`` sorted words
+    (the whole scan, the fold alone, the fold of a prefix with the whole
+    order checked), then with a pair swapped and a word corrupted at the
+    seams 4095/4096 (vector, warp and block), at the middle block seam and
+    at the last pair; ``sizes["shards"]`` views of ``sizes["shard"]``
+    words of one sorted array (the radix cell's shards: each shard's row,
+    and ``verify_result`` of the result clean, with one seam between
+    shards broken and with one word duplicated); two-word planes of
+    ``sizes["pairs"]`` keys with the high word narrow (ties decided by
+    the low word) with faults at the same seams; planes one word past a
+    16-byte boundary (the kernel's one-word head, then its vectors) and
+    two planes at different offsets (its one-word loop).  Timed by CUDA
+    events (warm median of ``REPS``): the scan of the plane, the fold
+    alone, the scan of the pairs, the shifted plane, the two planes at
+    different offsets, and the check of the
+    eight shards (one zeroed row tensor, eight launches, one read), each
+    beside its bound (the bytes read once at 3.35 TB/s) and beside the
+    PyTorch chain it replaces (the plain version on the card); the
+    launches of one ``sort()`` of the plane."""
+    import numpy as np
+    import torch
+
+    from mpitest_tpu_torch.models import api
+    from mpitest_tpu_torch.models import verify as vfy
+    from mpitest_tpu_torch.ops import _build, fold
+
+    dev = torch.device("cuda")
+    out: dict = {"card": card}
+
+    def sync() -> None:
+        torch.cuda.synchronize()
+
+    def events(fn, reps: int = REPS) -> float:
+        fn()
+        sync()
+        ms = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return statistics.median(ms)
+
+    def row_of(words, n_sorted, n_fold, i_last, plain=False):
+        if plain:
+            return [int(v) & 0xFFFFFFFF for v in
+                    fold.scan_plain(words, n_sorted, n_fold, i_last).tolist()]
+        row = torch.zeros(fold.row_width(len(words)), dtype=torch.int64, device=dev)
+        fold.scan(words, n_sorted, n_fold, i_last, row)
+        return [int(v) & 0xFFFFFFFF for v in row.tolist()]
+
+    checked = 0
+
+    def same(label, words, n_sorted, n_fold, i_last, flag=None):
+        nonlocal checked
+        got = row_of(words, n_sorted, n_fold, i_last)
+        want = row_of(words, n_sorted, n_fold, i_last, plain=True)
+        if got != want:
+            raise AssertionError(f"verify_scan {label}: kernel {got} != plain {want}")
+        k = len(words)
+        if flag is not None and got[2 * k] != flag:
+            raise AssertionError(f"verify_scan {label}: order flag {got[2 * k]}, "
+                                 f"expected {flag}")
+        checked += 1
+        return got
+
+    def swap(words, j):
+        for w in words:
+            a, b = w[j].clone(), w[j + 1].clone()
+            w[j], w[j + 1] = b, a
+
+    def seams(label, words):
+        """Faults at the seams of sorted planes, each undone after."""
+        n = words[0].numel()
+        clean = same(f"{label} clean", words, n, n, n - 1, flag=0)
+        for j in (3, 127, 1023, 4095, n // 2 - 1, n - 2):
+            if all(int(w[j]) == int(w[j + 1]) for w in words):
+                continue
+            swap(words, j)
+            same(f"{label} swapped {j}/{j + 1}", words, n, n, n - 1, flag=1)
+            swap(words, j)
+            words[-1][j + 1] ^= 0x10000
+            got = same(f"{label} corrupted {j + 1}", words, n, n, n - 1)
+            words[-1][j + 1] ^= 0x10000
+            if got[:2 * len(words)] == clean[:2 * len(words)]:
+                raise AssertionError(f"verify_scan {label}: corrupting word "
+                                     f"{j + 1} left the fold unchanged")
+
+    # ---- one plane of the one-rank cell
+    n = sizes["plane"]
+    g = torch.Generator(device=dev).manual_seed(1900)
+    x = torch.randint(-(2**31), 2**31, (n,), dtype=torch.int32, device=dev, generator=g)
+    plane = (torch.sort(x).values ^ -(2**31),)      # unsigned order, as encode_torch
+    sync()
+    same("plane fold", plane, 0, n, -1)
+    same("plane prefix", plane, n, n - 12345, n - 12346, flag=0)
+    seams("plane", plane)
+    same("plane unsorted", (x,), n, n, n - 1, flag=1)
+    launches = _build.launches("verify_scan")
+    res = api.DistributedSortResult(plane, n, np.dtype(np.uint32))
+    t_check = events(lambda: vfy.verify_result(res, None))
+    t_scan = events(lambda: fold.scan(plane, n, n, n - 1, torch.zeros(
+        fold.row_width(1), dtype=torch.int64, device=dev)))
+    t_fold = events(lambda: fold.scan(plane, 0, n, -1, torch.zeros(
+        fold.row_width(1), dtype=torch.int64, device=dev)))
+    t_plain = events(lambda: fold.scan_plain(plane, n, n, n - 1), reps=PLAIN_REPS)
+    bound = 4 * n / HBM_BYTES_PER_S * 1e3
+    out["plane"] = {"n": n, "scan_ms": t_scan, "fold_ms": t_fold,
+                    "verify_result_ms": t_check, "plain_ms": t_plain,
+                    "bound_ms": bound, "scan_share": bound / t_scan}
+    log(f"[verify] one plane of 2^{n.bit_length() - 1}: scan {t_scan:.4f} ms "
+        f"({4 * n / t_scan / 1e6:.1f} GB/s, {100 * bound / t_scan:.1f}% of "
+        f"3.35 TB/s), fold alone {t_fold:.4f} ms, verify_result (zeroing, launch, "
+        f"read) {t_check:.4f} ms; bound {bound:.4f} ms; the PyTorch chain it "
+        f"replaces (plain version on the card) {t_plain:.3f} ms | card {card}")
+    api.sort(x, device=dev, return_result=True)                # warm: builds K1
+    sync()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        api.sort(x, device=dev, return_result=True)
+        sync()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    verify_ms = [e.time_range.elapsed_us() / 1e3 for e in kernels
+                 if "verify_scan" in e.name]
+    out["sort_launches"] = {"all": len(kernels), "verify_scan_ms": verify_ms}
+    log(f"[verify] sort() of the plane: {len(kernels)} device operations, "
+        f"{len(verify_ms)} verify_scan ({', '.join(f'{v:.4f}' for v in verify_ms)} ms) "
+        f"| card {card}")
+    del x, plane, res
+    torch.cuda.empty_cache()
+
+    # ---- the radix cell's eight shards
+    P, m = sizes["shards"], sizes["shard"]
+    x = torch.randint(-(2**31), 2**31, (P * m,), dtype=torch.int32, device=dev, generator=g)
+    whole = torch.sort(x).values ^ -(2**31)
+    shards = tuple((whole[r * m:(r + 1) * m],) for r in range(P))
+    for r, s in enumerate(shards):
+        same(f"shard {r}", s, m, m, m - 1, flag=0)
+        same(f"shard {r} fold", s, 0, m, -1)
+    fp_in = vfy.fingerprint_device([(x ^ -(2**31),)], P * m)
+    res = api.DistributedSortResult((), P * m, np.dtype(np.int32), shards=shards)
+    if vfy.verify_result(res, fp_in) != (True, True):
+        raise AssertionError("verify_result of the clean shards failed")
+    a, b = whole[3 * m - 1].clone(), whole[3 * m].clone()
+    whole[3 * m - 1], whole[3 * m] = b, a           # the seam between ranks 2 and 3
+    if vfy.verify_result(res, fp_in) != (False, True):
+        raise AssertionError("verify_result missed a broken seam between shards")
+    whole[3 * m - 1], whole[3 * m] = a, b
+    keep = whole[5 * m + 7].clone()
+    whole[5 * m + 7] = whole[5 * m + 6]
+    if vfy.verify_result(res, fp_in) != (True, False):
+        raise AssertionError("verify_result missed a duplicated key")
+    whole[5 * m + 7] = keep
+    t_shards = events(lambda: vfy.verify_result(res, fp_in))
+    t_shards_plain = events(lambda: [fold.scan_plain(s, m, m, m - 1) for s in shards],
+                            reps=PLAIN_REPS)
+    bound = 4 * P * m / HBM_BYTES_PER_S * 1e3
+    out["shards"] = {"P": P, "n": m, "verify_result_ms": t_shards,
+                     "plain_ms": t_shards_plain, "bound_ms": bound}
+    log(f"[verify] {P} shards of 2^{m.bit_length() - 1}: verify_result {t_shards:.4f} "
+        f"ms (one zeroed row tensor, {P} launches, one read), bound {bound:.4f} ms; "
+        f"the PyTorch chain (plain version on the card) {t_shards_plain:.3f} ms "
+        f"| card {card}")
+    del x, whole, shards, res
+    torch.cuda.empty_cache()
+
+    # ---- two-word planes
+    n = sizes["pairs"]
+    hi = torch.randint(0, 64, (n,), dtype=torch.int64, device=dev, generator=g)
+    lo = torch.randint(0, 2**32, (n,), dtype=torch.int64, device=dev, generator=g)
+    key = torch.sort((hi << 32) | lo).values.view(torch.int32).view(-1, 2)
+    pairs = (key[:, 1].contiguous(), key[:, 0].contiguous())    # (hi, lo)
+    del hi, lo, key
+    same("pairs fold", pairs, 0, n, -1)
+    same("pairs prefix", pairs, n, n // 3, n // 3 - 1, flag=0)
+    seams("pairs", pairs)
+    t_pairs = events(lambda: fold.scan(pairs, n, n, n - 1, torch.zeros(
+        fold.row_width(2), dtype=torch.int64, device=dev)))
+    t_pairs_plain = events(lambda: fold.scan_plain(pairs, n, n, n - 1), reps=PLAIN_REPS)
+    bound = 8 * n / HBM_BYTES_PER_S * 1e3
+    out["pairs"] = {"n": n, "scan_ms": t_pairs, "plain_ms": t_pairs_plain,
+                    "bound_ms": bound}
+    log(f"[verify] two planes of 2^{n.bit_length() - 1}: scan {t_pairs:.4f} ms, bound "
+        f"{bound:.4f} ms ({100 * bound / t_pairs:.1f}%); plain {t_pairs_plain:.3f} ms "
+        f"| card {card}")
+    del pairs
+    torch.cuda.empty_cache()
+
+    # ---- planes past a 16-byte boundary: one word past it (a one-word
+    # head, then vectors), and two planes at different offsets (the
+    # one-word loop)
+    n = sizes["unaligned"]
+    for label, offs in (("x1 +1", (1,)), ("x2 +1", (1, 1)), ("x2 +1/+2", (1, 2))):
+        buf = [torch.sort(torch.randint(-(2**31), 2**31, (n + o,), dtype=torch.int32,
+                                        device=dev, generator=g)).values ^ -(2**31)
+               for o in offs]
+        off = tuple(b[o:] for b, o in zip(buf, offs))
+        same(f"unaligned {label}", off, n, n, n - 1, flag=0)
+        same(f"unaligned {label} fold", off, 0, n - 5, -1)
+        seams(f"unaligned {label}", off)
+        if label != "x2 +1":
+            t_off = events(lambda: fold.scan(off, n, n, n - 1, torch.zeros(
+                fold.row_width(len(off)), dtype=torch.int64, device=dev)))
+            bound = 4 * n * len(off) / HBM_BYTES_PER_S * 1e3
+            out[f"unaligned {label}"] = {"n": n, "scan_ms": t_off, "bound_ms": bound}
+            log(f"[verify] {len(off)} plane(s) of 2^{n.bit_length() - 1} at word "
+                f"offsets {offs}: scan {t_off:.4f} ms, bound {bound:.4f} ms "
+                f"| card {card}")
+    out["checked"] = checked
+    out["launches"] = _build.launches("verify_scan") - launches
+    log(f"[verify] {checked} rows equal to the plain version's, every fault found "
+        f"| card {card}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2409,6 +2647,7 @@ def main() -> int:
         log(f"[kernels] K8 n=4097 raises: {e}")
     else:
         raise AssertionError("K8 n=4097 did not raise")
+    verify_phase(log, card)
     for name, count in bitonic.LAUNCHES.items():
         if count <= before[name]:
             raise AssertionError(f"kernel {name} never launched in phase 2")
@@ -2418,7 +2657,14 @@ def main() -> int:
     # ----------------------------------------------------- 3. main paths
     K1, K2, K3, K4 = "bitonic_u32", "bitonic_pairs_u32", "fix_runs_pairs", "radix_pass"
     K4H = "radix_histogram"     # K4's one histogram launch a sort
+    VS = "verify_scan"
     per_case = {}
+
+    def verify_scans(x, shards: int) -> int:
+        """The verifier's launches for one verified sort: one scan a shard
+        for the result check, and one a shard for the input fingerprint
+        when the input is on the card (a host input folds on the host)."""
+        return shards * (1 + isinstance(x, torch.Tensor))
 
     def run_case(label: str, x, engine: str, oracle, kernels_run: tuple[str, ...],
                  k4_passes: int = 0, **counters) -> None:
@@ -2444,6 +2690,7 @@ def main() -> int:
         expect = {k2: int(k2 in kernels_run) for k2 in base}
         expect[K4] = k4_passes
         expect[K4H] = int(k4_passes > 0)        # one fused sort a call
+        expect[VS] = verify_scans(x, 1)
         passes = radix.pass_launches() - base_passes
         if per_case[label] != expect or passes != k4_passes:
             raise AssertionError(f"{label}: launches {per_case[label]}, K4 passes "
@@ -2624,8 +2871,13 @@ def main() -> int:
 
     def run_mesh_case(label: str, x, algo: str, oracle, local: str, **checks) -> None:
         tr = Tracer()
+        scans = bitonic.LAUNCHES[VS]
         t = time.perf_counter()
         res = mt.sort(x, algorithm=algo, mesh=mesh, tracer=tr, return_result=True)
+        scans = bitonic.LAUNCHES[VS] - scans
+        if scans != verify_scans(x, RANKS):
+            raise AssertionError(f"{label}: {scans} verify scans != "
+                                 f"{verify_scans(x, RANKS)}")
         got = res.to_numpy(tracer=tr)
         secs = time.perf_counter() - t
         # host input of STREAM_MIN_BYTES or more streams onto the ranks; a

@@ -858,14 +858,17 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
     resolved = _resolve_local_engine(engine, codec.n_words, N)
     tracer.counters["local_engine"] = resolved
     if is_device:
+        # encode once: the fingerprint and the sort share the words
+        with tracer.phase("encode"):
+            words = codec.encode_torch(x.reshape(-1))
         if verify_on:
             with tracer.phase("verify"):
-                fp_in = vfy.fingerprint_device_input(x, dtype)
+                fp_in = vfy.fingerprint_words(words, N)
         with tracer.phase("sort"):
             out = _traced_call(
                 tracer, "local_device", (dtype.name, resolved, N, device.type),
-                lambda: kernels.local_sort(codec.encode_torch(x.reshape(-1)),
-                                           engine=resolved))
+                kernels.local_sort, words, resolved)
+        del words   # the verifier runs without them
     else:
         with tracer.phase("encode"):
             words_np = codec.encode(x.reshape(-1))

@@ -15,7 +15,15 @@ Every ``sort()`` proves its own result:
    the sum, corruption the XOR.
 
 Sortedness plus fingerprint equality together imply the result is the
-sorted input.  The reductions are plain PyTorch on the words' device.
+sorted input.  Both come from one read of each shard's words
+(``ops/fold.py``: a hand-written CUDA kernel on a card, its plain
+PyTorch version on the CPU): the fold, an order flag over the whole
+shard, and the keys the seams between ranks need, one row a shard.  The
+rows of one device are read to the host once a side: ``verify.fold``
+(the input fingerprint) and ``verify.check`` (the result).  The
+reference's reductions are plain XLA; in PyTorch they took some 90
+launches and 7 host reads a one-rank call and a third of its device
+time, where one pass at the card's memory rate does.
 
 The external sort's spill runs fold on the host: :func:`fingerprint_host`
 for bare keys, :func:`fingerprint_records` once a payload rides, and
@@ -37,7 +45,8 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from mpitest_tpu_torch.ops.keys import codec_for, unsigned_order
+from mpitest_tpu_torch.ops import fold
+from mpitest_tpu_torch.ops.keys import codec_for
 from mpitest_tpu_torch.parallel import mesh as mesh_mod
 from mpitest_tpu_torch.utils import spans
 
@@ -111,98 +120,103 @@ def fingerprint_records(key_words: "tuple[np.ndarray, ...]",
     return fingerprint_host(words + (record_mix(words),))
 
 
-def _xor_reduce(w: torch.Tensor) -> int:
-    """XOR of a flat word plane by a halving fold (PyTorch has no XOR
-    reduction); O(n) work, O(log n) ops."""
-    if w.numel() == 0:
-        return 0
-    while w.numel() > 1:
-        n = w.numel()
-        half = n // 2
-        folded = w[:half] ^ w[half:2 * half]
-        if n % 2:
-            folded[0] ^= w[n - 1]
-        w = folded
-    with spans.host_sync("verify.xor"):
-        return int(w[0]) & _U32
+@dataclass(frozen=True)
+class _Scan:
+    """One shard's row of :func:`ops.fold.scan`, read to the host."""
+
+    xors: tuple
+    sums: tuple
+    unsorted: bool
+    first: tuple        # the key at 0, uint32 words msw first
+    last: tuple         # the key at ``i_last``
+
+    @staticmethod
+    def of(row: "list[int]", k: int) -> "_Scan":
+        """Parse a row of ``k`` words' columns (low 32 bits of each)."""
+        v = [c & _U32 for c in row]
+        return _Scan(tuple(v[:k]), tuple(v[k:2 * k]), bool(v[2 * k]),
+                     tuple(v[2 * k + 1:3 * k + 1]), tuple(v[3 * k + 1:]))
 
 
-def _sum32(w: torch.Tensor) -> int:
-    """Wrapping uint32 sum: the signed int32 sum differs from the unsigned
-    one by a multiple of 2^32, and int64 cannot overflow below 2^32 keys."""
-    total = w.sum(dtype=torch.int64)
-    with spans.host_sync("verify.sum"):
-        return int(total) & _U32
+#: One scan: ``(words, n_sorted, n_fold, i_last)`` (see ``ops/fold.py``).
+_Job = tuple[tuple[torch.Tensor, ...], int, int, int]
 
 
-def _fold(words: "tuple[torch.Tensor, ...]", n_valid: int) -> Fingerprint:
-    return Fingerprint(n_valid,
-                       tuple(_xor_reduce(w[:n_valid]) for w in words),
-                       tuple(_sum32(w[:n_valid]) for w in words))
+def _scan(jobs: list[_Job], what: str) -> list[_Scan]:
+    """Run every job, one launch each, into one zeroed ``[jobs, k]`` row
+    tensor a device, then read each device's rows to the host in one
+    ``host_sync(what)`` (all devices launch before the first read)."""
+    by_dev: dict = {}
+    for i, (words, n_sorted, n_fold, _) in enumerate(jobs):
+        if fold.n_read(n_sorted, n_fold):
+            by_dev.setdefault(words[0].device, []).append(i)
+    rows = {}
+    for dev, idx in by_dev.items():
+        n_words = len(jobs[idx[0]][0])
+        rows[dev] = torch.zeros((len(idx), fold.row_width(n_words)),
+                                dtype=torch.int64, device=dev)
+        for r, i in enumerate(idx):
+            words, n_sorted, n_fold, i_last = jobs[i]
+            fold.scan(tuple(w.reshape(-1).contiguous() for w in words),
+                      n_sorted, n_fold, i_last, rows[dev][r])
+    out = [_Scan.of([0] * fold.row_width(len(w)), len(w)) for w, *_ in jobs]
+    for dev, idx in by_dev.items():
+        with spans.host_sync(what):
+            vals = rows[dev].tolist()
+        for r, i in enumerate(idx):
+            out[i] = _Scan.of(vals[r], len(jobs[i][0]))
+    return out
+
+
+def _combine(parts: "Sequence[Fingerprint | _Scan]", count: int) -> Fingerprint:
+    """The fingerprint of ``count`` keys from the folds of their parts."""
+    n_words = len(parts[0].xors)
+    xors = [0] * n_words
+    sums = [0] * n_words
+    for part in parts:
+        for k in range(n_words):
+            xors[k] ^= part.xors[k]
+            sums[k] = (sums[k] + part.sums[k]) & _U32
+    return Fingerprint(count, tuple(xors), tuple(sums))
+
+
+def _fold_counts(valid: "list[int]", n_valid: int) -> "list[int]":
+    """Keys folded from each shard: the first ``valid[r]``, stopping once
+    ``n_valid`` keys (in rank order) are folded."""
+    out, left = [], n_valid
+    for v in valid:
+        v = max(0, min(v, left))
+        out.append(v)
+        left -= v
+    return out
+
+
+def _fold_shards(shards: "Sequence[tuple[torch.Tensor, ...]]", valid: "list[int]",
+                 n_valid: int, what: str) -> Fingerprint:
+    """Fold the first ``valid[r]`` words of each shard, stopping once
+    ``n_valid`` keys (in rank order) are folded."""
+    counts = _fold_counts(valid, n_valid)
+    scans = _scan([(w, 0, min(v, int(w[0].numel())), -1)
+                   for w, v in zip(shards, counts)], what)
+    return _combine(scans, sum(counts))
+
+
+def fingerprint_words(words: "tuple[torch.Tensor, ...]", n_valid: int) -> Fingerprint:
+    """Fingerprint of the first ``n_valid`` keys of device words."""
+    return _fold_shards([words], [n_valid], n_valid, "verify.fold")
 
 
 def fingerprint_device_input(x: torch.Tensor, dtype: object) -> Fingerprint:
     """Fingerprint of raw device-resident keys (encode on the device)."""
-    words = codec_for(dtype).encode_torch(x.reshape(-1))
-    return _fold(words, x.numel())
-
-
-def is_sorted_words(words: "tuple[torch.Tensor, ...]") -> bool:
-    """Lexicographic non-decreasing check over whole word planes: a pair
-    is in order iff the first differing word (msw first) increases."""
-    total = words[0].numel()
-    if total < 2:
-        return True
-    lt = torch.zeros(total - 1, dtype=torch.bool, device=words[0].device)
-    eq = torch.ones_like(lt)
-    for w in words:
-        u = unsigned_order(w)
-        a, b = u[:-1], u[1:]
-        lt |= eq & (a < b)
-        eq &= a == b
-    ok = torch.all(lt | eq)
-    with spans.host_sync("verify.sorted"):
-        return bool(ok)
+    return fingerprint_words(codec_for(dtype).encode_torch(x.reshape(-1)), x.numel())
 
 
 def fingerprint_device(shards: "list[tuple[torch.Tensor, ...]]",
                        n_valid: int) -> Fingerprint:
     """Input-side fingerprint over per-rank padded shards: the first
     ``n_valid`` keys in rank order (pads sit at the global tail)."""
-    return _fold_shards(shards, [int(s[0].numel()) for s in shards], n_valid)
-
-
-def _combine(fps: "list[Fingerprint]", count: int) -> Fingerprint:
-    n_words = len(fps[0].xors)
-    xors = [0] * n_words
-    sums = [0] * n_words
-    for fp in fps:
-        for k in range(n_words):
-            xors[k] ^= fp.xors[k]
-            sums[k] = (sums[k] + fp.sums[k]) & _U32
-    return Fingerprint(count, tuple(xors), tuple(sums))
-
-
-def _fold_shards(shards: "list[tuple[torch.Tensor, ...]]", valid: "list[int]",
-                 n_valid: int) -> Fingerprint:
-    """Fold the first ``valid[r]`` words of each shard, stopping once
-    ``n_valid`` keys (in rank order) are folded."""
-    fps, left = [], n_valid
-    for words, v in zip(shards, valid):
-        v = max(0, min(v, left))
-        fps.append(_fold(words, v))
-        left -= v
-    return _combine(fps, n_valid - left)
-
-
-def _key_at(words: "tuple[torch.Tensor, ...]", i: int) -> "tuple[int, ...]":
-    """Key ``i`` as a tuple of uint32 values, msw first (tuples compare
-    lexicographically)."""
-    out = []
-    for w in words:
-        with spans.host_sync("verify.key_at"):
-            out.append(int(w[i]) & _U32)
-    return tuple(out)
+    return _fold_shards(shards, [int(s[0].numel()) for s in shards], n_valid,
+                        "verify.fold")
 
 
 def _valid_counts(res: "DistributedSortResult") -> "list[int]":
@@ -216,23 +230,28 @@ def _local_ranks(res: "DistributedSortResult") -> "Sequence[int]":
     return res.mesh.local_ranks if res.mesh is not None else range(len(res.shards))
 
 
-def _contiguous_fold(res: "DistributedSortResult") -> Fingerprint:
-    """The fold of the shards a contiguous result holds here: rank r holds
-    global keys ``[r*n, (r+1)*n)``, valid below ``n_valid``."""
+def _contiguous_valid(res: "DistributedSortResult") -> "list[int]":
+    """Valid keys of each shard a contiguous result holds here: rank r
+    holds global keys ``[r*n, (r+1)*n)``, valid below ``n_valid``."""
     n = int(res.shards[0][0].numel())
-    valid = [max(0, min(n, res.n_valid - r * n)) for r in _local_ranks(res)]
-    return _combine([_fold(w, v) for w, v in zip(res.shards, valid)], sum(valid))
+    return [max(0, min(n, res.n_valid - r * n)) for r in _local_ranks(res)]
 
 
 def _contiguous_check(res: "DistributedSortResult") -> tuple[bool, Fingerprint]:
     """Sortedness and fingerprint of a contiguous result: each shard
     sorted, each seam between consecutive nonempty ranks in order, the
-    first ``n_valid`` keys folded.  Across processes one control-group
-    round carries every process's fold and its ranks' first and last
-    keys."""
-    ends = {r: (is_sorted_words(s), _key_at(s, 0), _key_at(s, -1))
-            for r, s in zip(_local_ranks(res), res.shards) if s[0].numel()}
-    parts = mesh_mod.each_process(res.mesh, (_contiguous_fold(res), ends))
+    first ``n_valid`` keys folded; one scan a shard (its whole order, its
+    valid keys, its first and last key).  Across processes one
+    control-group round carries every process's fold and its ranks' first
+    and last keys."""
+    valid = _contiguous_valid(res)
+    sizes = [int(s[0].numel()) for s in res.shards]
+    scans = _scan([(w, n, v, n - 1) for w, n, v in zip(res.shards, sizes, valid)],
+                  "verify.check")
+    mine = _combine(scans, sum(valid))
+    ends = {r: (not sc.unsorted, sc.first, sc.last)
+            for r, n, sc in zip(_local_ranks(res), sizes, scans) if n}
+    parts = mesh_mod.each_process(res.mesh, (mine, ends))
     every: dict = {}
     for _, e in parts:
         every.update(e)
@@ -242,30 +261,44 @@ def _contiguous_check(res: "DistributedSortResult") -> tuple[bool, Fingerprint]:
     return ok, _combine([f for f, _ in parts], res.n_valid)
 
 
+def _ragged_check(res: "DistributedSortResult") -> tuple[bool, Fingerprint]:
+    """Sortedness and fingerprint of a ragged result (see
+    :func:`verify_result`); one scan a shard (its whole order, its folded
+    keys, its first key and its last valid one)."""
+    counts = _valid_counts(res)
+    folded = _fold_counts(counts, res.n_valid)
+    jobs = []
+    for words, c, v in zip(res.shards, counts, folded):
+        n = int(words[0].numel())
+        jobs.append((words, n, min(v, n), c - 1 if c > 0 else -1))
+    scans = _scan(jobs, "verify.check")
+    ok = not any(sc.unsorted for sc in scans)
+    run_max = None
+    for sc, c in zip(scans, counts):
+        if c == 0:
+            continue
+        if run_max is not None and sc.first < run_max:
+            ok = False
+        run_max = sc.last if run_max is None else max(run_max, sc.last)
+    return ok, _combine(scans, sum(folded))
+
+
 def result_fingerprint(res: "DistributedSortResult") -> Fingerprint:
     """Fingerprint of a result's first ``n_valid`` keys in rank order
     (pads and the ragged layout's fill words left out); across processes,
     every process's folds combined (every process calls it together)."""
     if res.counts is None:
-        folds = mesh_mod.each_process(res.mesh, _contiguous_fold(res))
+        fp = _fold_shards(list(res.shards), _contiguous_valid(res),
+                          res.n_valid, "verify.check")
+        folds = mesh_mod.each_process(res.mesh, fp)
         return _combine(folds, res.n_valid)
-    return _fold_shards(list(res.shards), _valid_counts(res), res.n_valid)
+    return _fold_shards(list(res.shards), _valid_counts(res), res.n_valid,
+                        "verify.check")
 
 
 def result_sorted(res: "DistributedSortResult") -> bool:
     """Sortedness of a result in either layout (see :func:`verify_result`)."""
-    if res.counts is None:
-        return _contiguous_check(res)[0]
-    ok = all(is_sorted_words(s) for s in res.shards)
-    run_max = None
-    for words, c in zip(res.shards, _valid_counts(res)):
-        if c == 0:
-            continue
-        if run_max is not None and _key_at(words, 0) < run_max:
-            ok = False
-        last = _key_at(words, c - 1)
-        run_max = last if run_max is None else max(run_max, last)
-    return ok
+    return (_contiguous_check(res) if res.counts is None else _ragged_check(res))[0]
 
 
 def verify_result(res: "DistributedSortResult",
@@ -284,8 +317,6 @@ def verify_result(res: "DistributedSortResult",
     keys folded up to ``n_valid`` in rank order.  Across processes
     (``res.mesh``) every process calls it together and gets the same
     verdict."""
-    if res.counts is None:
-        ok, out_fp = _contiguous_check(res)
-    else:
-        ok, out_fp = result_sorted(res), result_fingerprint(res)
+    ok, out_fp = (_contiguous_check(res) if res.counts is None
+                  else _ragged_check(res))
     return ok, input_fp is None or out_fp == input_fp

@@ -46,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: Seconds one ``nvcc`` may run before its build is abandoned: many times
-#: the cold build of all four sources, started together, on the H100
+#: the cold build of every source, started together, on the H100
 #: machine (both numbers in ``PERF.md`` §5), so a healthy build never
 #: meets it; it only ends a compiler that does not answer.
 BUILD_TIMEOUT_S = 600.0

@@ -117,8 +117,9 @@ class ExecutorCache:
     def build_kernels(self) -> float:
         """Build and load every kernel source (``csrc/*.cu``: K1-K3 on the
         one-rank path, K4 under ``radix_pallas``, K5-K7 on several ranks,
-        K8 in the spill tier's merge) when the device is a card; returns
-        the seconds it took (0 on the CPU, where the plain versions run).
+        K8 in the spill tier's merge, the verifier's scan on every path)
+        when the device is a card; returns the seconds it took (0 on the
+        CPU, where the plain versions run).
         Once built, a call only hashes the sources."""
         if self.device.type != "cuda":
             return 0.0

@@ -2,6 +2,8 @@
 (``mpitest_tpu_torch/utils/spans.py``: ``SpanLog.span``'s
 ``record_function`` ranges, :func:`spans.host_sync`).
 
+* The verifier reads its rows once a device a side: ``verify.fold``
+  (the input fingerprint) and ``verify.check`` (the result).
 * The sync guard: with ``torch.Tensor``'s reads to the host (``item``,
   ``__int__``, ``__float__``, ``__bool__``, ``cpu``, ``tolist``,
   ``numpy``) patched to count, a verified ``sort(..., return_result=True)``
@@ -36,7 +38,9 @@ from mpitest_tpu_torch.utils.trace import Tracer
 #: ``torch.Tensor`` methods that copy a value to the host.
 READS = ("item", "__int__", "__float__", "__bool__", "cpu", "tolist", "numpy")
 
-VERIFY = {"verify.xor", "verify.sum", "verify.sorted", "verify.key_at"}
+#: The verifier's reads: the input fingerprint and the result's check,
+#: each one read of its rows a device.
+VERIFY = {"verify.fold", "verify.check"}
 
 #: (algorithm, ranks, dtype, keys) of each path, and the ``what`` names it
 #: reads under (int64 on one rank: the pair engine, from 2^13 keys).
@@ -127,6 +131,18 @@ def test_every_host_read_is_a_counted_host_sync(path, monkeypatch):
     assert all(s.attrs["host_sync_s"] >= 0 for s in tr.spans.spans if "host_syncs" in s.attrs)
     assert tr.counters["verify_runs"] >= 1
     assert np.array_equal(res.to_numpy(), want)
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_verifier_reads_once_a_device_a_side(path, monkeypatch):
+    """A verified call reads the verifier's rows once a device for the
+    input fingerprint and once for the result: one of each on one rank,
+    and one of each on the CPU eight-rank mesh, whose ranks share the one
+    CPU device."""
+    x = _keys(PATHS[path][3], PATHS[path][2], 14)
+    with Guard().active(monkeypatch) as g:
+        _sort(path, x, Tracer())
+    assert g.blocks["verify.fold"] == g.blocks["verify.check"] == 1
 
 
 def test_host_sync_adds_to_the_innermost_open_span():

@@ -188,7 +188,7 @@ def test_executor_cache_prewarm_builds_every_kernel_for_a_card(monkeypatch):
     cache.device = torch.device("cuda")        # what the build keys on
     monkeypatch.setattr(cache, "_warm", lambda nwt, b: sg.compile_packed_sort(nwt, b))
     assert cache.prewarm((1024, 2048), ("int32",)) == 2
-    sources = ("bitonic", "exchange", "merge", "radix")
+    sources = ("bitonic", "exchange", "merge", "radix", "verify")
     assert calls == [("build", sources)] + [("load", n) for n in sources]
     misses = [s.attrs for s in log.spans if s.name == "serve.compile_cache"]
     assert misses[0]["compile_s"] >= 0.05 > misses[1]["compile_s"]
