@@ -1457,7 +1457,8 @@ try:
     x = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32, device="cuda",
                       generator=g)
     want = torch.sort(x).values.cpu().numpy()
-    for ranks, must in ((1, ["bitonic_u32"]), (8, ["fused_pass_pack", "remote_a2a"])):
+    for ranks, must in ((1, ["bitonic_u32"]),
+                        (8, ["fused_pass_pack", "remote_a2a", "slot_place"])):
         mesh = make_mesh(ranks)
         assert mesh.size == ranks
         for rep in range(2):
@@ -1613,7 +1614,7 @@ try:
             if rep == 0:
                 cold = {"wall_s": walls[0], "open_s": stats["open_s"]}
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
-        for k in ("fused_pass_pack", "remote_a2a"):
+        for k in ("fused_pass_pack", "remote_a2a", "slot_place"):
             assert launches.get(k, 0) > 0, (label, k, launches)
         restage_k7 = crossprocess_k7_under_restage(tr.spans.spans)
         if kind == "sorted":
@@ -2340,6 +2341,146 @@ def verify_phase(log, card: str, sizes: dict = VERIFY_SIZES) -> dict:
     return out
 
 
+#: The placement phase's size: the radix cell's (2^28 int32 keys over
+#: eight ranks of the card, two 16-bit passes).
+SLOT_PLACE_SIZES = {"keys": 1 << 28, "ranks": 8}
+
+
+def slot_place_phase(log, card: str, sizes: dict = SLOT_PLACE_SIZES) -> dict:
+    """``slot_place`` (``ops/exchange.py``) on the receive buffers of a
+    real exchange at the radix cell's shape, against its plain version and
+    the sorts it replaced.
+
+    One eight-rank radix ``sort()`` of ``sizes["keys"]`` int32 keys runs
+    with ``exchange.slot_place`` wrapped, keeping rank 0's two calls: the
+    merge pass's (with the digit plane) and the final merge's.  Each is
+    checked byte for byte against the plain version on the card, then
+    timed by CUDA events (warm median of ``REPS``): the call (output fill
+    and launch), the kernel alone (profiler), the plain version, and the
+    merge it replaced (the merge pass's sort keyed on ``(digit, slot)``
+    over the whole receive buffer; the final sort by slot and its gather)
+    beside the merge as it is now (placement, then the stable digit
+    sort).  Bound: the slot plane read once, the valid lanes of each
+    plane read once, each output plane written once, at 3.35 TB/s."""
+    import torch
+
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch.models import radix_sort
+    from mpitest_tpu_torch.ops import _build, exchange, kernels
+    from mpitest_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda")
+    out: dict = {"card": card}
+
+    def events(fn, reps: int = REPS) -> float:
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return statistics.median(ms)
+
+    def kernel_ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        ms = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "place_rows" in e.name)
+        if len(ms) != REPS:
+            raise AssertionError(f"slot_place: {len(ms)} place_rows kernels in "
+                                 f"{REPS} calls")
+        return statistics.median(ms)
+
+    calls: dict[str, tuple] = {}
+    real = exchange.slot_place
+
+    def keep(planes, slot, n, digit=None):
+        key = "merge" if digit is not None else "final"
+        calls.setdefault(key, (tuple(planes), slot, n, digit))
+        return real(planes, slot, n, digit)
+
+    P = sizes["ranks"]
+    g = torch.Generator(device=dev).manual_seed(2200)
+    x = torch.randint(-(2**31), 2**31, (sizes["keys"],), dtype=torch.int32, device=dev,
+                      generator=g)
+    before = _build.launches("slot_place")
+    exchange.slot_place = keep
+    try:
+        res = mt.sort(x, algorithm="radix", mesh=make_mesh(P), return_result=True)
+    finally:
+        exchange.slot_place = real
+    launches = _build.launches("slot_place") - before
+    if launches != 2 * P:
+        raise AssertionError(f"slot_place: {launches} launches in one sort, expected {2 * P}")
+    if not torch.equal(torch.cat([s[0] for s in res.shards]) ^ -(2**31),
+                       torch.sort(x).values):
+        raise AssertionError("slot_place: the eight-rank sort differs from torch.sort")
+    del res
+    out["launches_per_sort"] = launches
+    for key in ("merge", "final"):
+        planes, slot, n, digit = calls[key]
+        got = real(planes, slot, n, digit)
+        want = exchange.slot_place_plain(planes, slot, n, digit)
+        if len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"slot_place {key}: kernel differs from the plain version")
+        rows, cap = slot.shape
+        n_out = len(got)
+        nbytes = 4 * (rows * cap + n * len(planes) + n * n_out)
+        t_call = events(lambda: real(planes, slot, n, digit))
+        t_kernel = kernel_ms(lambda: real(planes, slot, n, digit))
+        t_plain = events(lambda: exchange.slot_place_plain(planes, slot, n, digit),
+                         reps=PLAIN_REPS)
+        if key == "merge":
+            w_idx, shift, bits, cnts = digit
+
+            def replaced():
+                d = kernels.digit_at(planes[w_idx], shift, bits)
+                c = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+                d = torch.where(c < cnts[:, None], d,
+                                torch.full((), 1 << bits, dtype=torch.int32, device=dev))
+                k = (d.to(torch.int64) << 32) | slot.to(torch.int64)
+                ks, order = torch.sort(k.reshape(-1))
+                order = order[:n]
+                return (ks[:n] >> 32).to(torch.int32), [p.reshape(-1)[order] for p in planes]
+
+            def now():
+                return radix_sort._merge_pass(planes, cnts, slot, w_idx, shift, bits, n)
+        else:
+            def replaced():
+                order = torch.sort(slot.reshape(-1)).indices[:n]
+                return [p.reshape(-1)[order] for p in planes]
+
+            def now():
+                return real(planes, slot, n)
+        t_replaced = events(replaced)
+        t_now = events(now)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[key] = {"rows": rows, "cap": cap, "n": n, "planes": len(planes),
+                    "outputs": n_out, "call_ms": t_call, "kernel_ms": t_kernel,
+                    "plain_ms": t_plain, "bound_ms": bound,
+                    "kernel_share": bound / t_kernel, "replaced_ms": t_replaced,
+                    "merge_now_ms": t_now}
+        log(f"[slot_place] {key} of rank 0, [{rows}, {cap}] -> {n_out} x 2^"
+            f"{n.bit_length() - 1}: kernel {t_kernel:.4f} ms ({100 * bound / t_kernel:.1f}% "
+            f"of the {bound:.4f} ms bound), call with its output fill {t_call:.4f} ms, "
+            f"plain version on the card {t_plain:.3f} ms; the merge it replaced "
+            f"{t_replaced:.3f} ms, the merge now {t_now:.3f} ms | card {card}")
+    calls.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2648,6 +2789,7 @@ def main() -> int:
     else:
         raise AssertionError("K8 n=4097 did not raise")
     verify_phase(log, card)
+    slot_place_phase(log, card)
     for name, count in bitonic.LAUNCHES.items():
         if count <= before[name]:
             raise AssertionError(f"kernel {name} never launched in phase 2")
@@ -3246,10 +3388,12 @@ def main() -> int:
     radix_launches = run_path("sort() under radix_pallas", (K4, K4H), radix_path)
     run_path("the key-file CLI", (K1, K4, K4H), cli_path)
     K5, K6, K7 = "segment_pack", "fused_pass_pack", "remote_a2a"
-    mesh_launches = run_path("radix on eight ranks (pallas engine)", (K6, K7),
+    SP = "slot_place"
+    mesh_launches = run_path("radix on eight ranks (pallas engine)", (K6, K7, SP),
                              mesh_radix_path)
-    lax_launches = run_path("radix on eight ranks (lax engine)", (K5,), mesh_lax_path)
-    run_path("radix on eight ranks under radix_pallas", (K4, K4H, K6, K7), mesh_k4_path)
+    lax_launches = run_path("radix on eight ranks (lax engine)", (K5, SP), mesh_lax_path)
+    run_path("radix on eight ranks under radix_pallas", (K4, K4H, K6, K7, SP),
+             mesh_k4_path)
     run_path("sample sort on eight ranks", (K1, K2, K3, K6, K7), mesh_sample_path)
     run_path("the key-file CLI, SORT_RANKS=8", (K1, K6, K7), mesh_cli_path)
     K8 = "merge_order"

@@ -12,6 +12,14 @@
 //   K7 remote_a2a      <- _remote_a2a_kernel (remote_a2a,
 //                         mpitest_tpu/ops/exchange.py:244)
 //
+// and the receive side of the radix exchange, which replaces no Pallas
+// kernel:
+//
+//   slot_place         <- the sorts keyed on the lane slot in
+//                         mpitest_tpu/models/radix_sort.py (lax.sort on
+//                         (digit, slot) merging a pass, on slot alone
+//                         after the last one)
+//
 // K5/K6 compute, for every destination p and lane c < cap,
 //
 //   out[p, c] = c < cnt[p] ? data[start[p] + c] : fill
@@ -46,9 +54,33 @@
 // processes on each side of the pushes (ops/exchange.py); the kernel is
 // the same.
 //
-// Bound on the H100: HBM bytes, all three.  K5/K6 read the n input words
+// slot_place writes every received lane of a [P, cap] receive matrix to
+// the output slot the radix sort already computed for it
+// (models/radix_sort.py _lane_slots): out[k][slot] = recv[k][lane] where
+// slot < n as an unsigned number; lanes with the slot n are padding.
+// The valid slots tile [0, n) once, so this is the permutation that the
+// reference applies by sorting on the slot; on a TPU a scatter is slow,
+// on this card it is one pass.  Optionally it also writes each placed
+// lane's radix digit of one plane (`(word >> shift) & mask`, or
+// `invalid` for a lane at or past its row's received count), so that the
+// next pass sorts the digits of n lanes instead of P*cap.  Each thread
+// reads four lanes of the slot plane with one 16-byte load (rows start at
+// multiples of cap, a multiple of 4, so the loads are aligned); a quad
+// with no valid slot reads no word plane, a warp with none skips the
+// step, and the others read each plane with one 16-byte load.  The
+// addressing serves every plane.  The writes are scalar and scattered by
+// nature; inside one digit run of a sender row consecutive lanes carry
+// consecutive slots, so each warp passes its 128 lanes through shared
+// memory and writes them in lane order, one 128-byte line a store where
+// a run allows.  Slots that no lane fills (an overflowed exchange) keep
+// what the caller put in the output; the bounds check alone keeps the
+// kernel in bounds.
+//
+// Bound on the H100: HBM bytes, all four.  K5/K6 read the n input words
 // and write P*cap words per plane; K7 reads and writes P*cap words per
-// rank.  The kernels do no arithmetic worth counting beside their copies.
+// rank; slot_place reads the P*cap slots and the valid lanes of each
+// plane and writes n words per plane.  The kernels do no arithmetic worth
+// counting beside their copies.
 //
 // Every kernel entry launches on the caller's stream, allocates nothing,
 // and returns cudaGetLastError() (0 on success); a refused argument
@@ -126,6 +158,77 @@ a2a_push(const uint4* __restrict__ send, uint32_t* const* __restrict__ dst_ptrs,
   }
 }
 
+struct PlacePlanes {
+  const uint32_t* in[kMaxPlanes];
+  uint32_t* out[kMaxPlanes];
+};
+
+// The optional digit plane of slot_place: out[slot] is the digit of plane
+// `plane` for a lane inside its row's count, `invalid` past it.
+struct PlaceDigit {
+  uint32_t* out;
+  const int32_t* cnts;
+  int plane;
+  int shift;
+  uint32_t mask;
+  uint32_t invalid;
+};
+
+constexpr int kWarps = kThreads / 32;
+
+// grid (x, P): the blocks of row s walk its quads with a grid stride, one
+// quad a thread and 32 consecutive quads a warp.  A warp stages its 128
+// lanes' slots and words in shared memory and writes them out in lane
+// order, so that consecutive threads write consecutive slots within a
+// digit run.
+template <bool kDigit>
+__global__ void __launch_bounds__(kThreads)
+place_rows(PlacePlanes pl, int n_planes, const int32_t* __restrict__ slot,
+           int cap, uint32_t n, PlaceDigit dg) {
+  __shared__ uint4 s_slot[kWarps][32];
+  __shared__ uint4 s_word[kMaxPlanes][kWarps][32];
+  const int s = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const size_t row = static_cast<size_t>(s) * cap;
+  const int quads = cap / kVec;
+  const int cnt = kDigit ? dg.cnts[s] : 0;
+  const uint32_t* staged_slot = reinterpret_cast<const uint32_t*>(s_slot[warp]);
+  for (int base = blockIdx.x * kThreads + warp * 32; base < quads;
+       base += gridDim.x * kThreads) {
+    const int q = base + lane;
+    const size_t at = row + static_cast<size_t>(q) * kVec;
+    uint4 sv = make_uint4(n, n, n, n);
+    if (q < quads) sv = *reinterpret_cast<const uint4*>(slot + at);
+    const bool any = sv.x < n || sv.y < n || sv.z < n || sv.w < n;
+    if (!__any_sync(0xFFFFFFFFu, any)) continue;   // the row's padding
+    s_slot[warp][lane] = sv;
+#pragma unroll
+    for (int k = 0; k < kMaxPlanes; ++k) {
+      if (k >= n_planes) break;
+      if (any) s_word[k][warp][lane] = *reinterpret_cast<const uint4*>(pl.in[k] + at);
+    }
+    __syncwarp();
+    // staged lane i is lane base * 4 + i of the row
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const int i = j * 32 + lane;
+      const uint32_t sl = staged_slot[i];
+      if (sl >= n) continue;
+#pragma unroll
+      for (int k = 0; k < kMaxPlanes; ++k) {
+        if (k >= n_planes) break;
+        const uint32_t w = reinterpret_cast<const uint32_t*>(s_word[k][warp])[i];
+        pl.out[k][sl] = w;
+        if (kDigit && k == dg.plane) {
+          dg.out[sl] = base * kVec + i < cnt ? (w >> dg.shift) & dg.mask : dg.invalid;
+        }
+      }
+    }
+    __syncwarp();   // the staging is the next step's
+  }
+}
+
 bool host_aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -147,6 +250,45 @@ int launch_pack(const PackPlanes& pl, int n_planes, const void* starts,
   pack_rows<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       pl, n_planes, static_cast<const int32_t*>(starts),
       static_cast<const int32_t*>(cnts), n, cap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Total blocks of one slot_place launch, spread over the rows: enough
+// to keep every SM of the card busy through the grid-stride loop.
+constexpr int kPlaceBlocks = 2048;
+
+int launch_place(const PlacePlanes& pl, int n_planes, const void* slot,
+                 long long n, int n_ranks, int cap, const PlaceDigit& dg,
+                 void* stream) {
+  if (n_planes < 1 || n_planes > kMaxPlanes || n < 0 || n >= (1LL << 31) ||
+      n_ranks < 1 || n_ranks > 65535 || cap < kVec || cap % kVec != 0 ||
+      static_cast<long long>(n_ranks) * cap >= (1LL << 31) ||
+      !host_aligned16(slot)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // with n = 0 nothing is written, and the empty outputs may be null
+  for (int q = 0; q < n_planes; ++q) {
+    if (!host_aligned16(pl.in[q]) || (pl.out[q] == nullptr && n > 0)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (dg.out != nullptr &&
+      (dg.cnts == nullptr || dg.plane < 0 || dg.plane >= n_planes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long quads = cap / kVec;
+  long long blocks = (quads + kThreads - 1) / kThreads;
+  const long long per_row = kPlaceBlocks / n_ranks > 0 ? kPlaceBlocks / n_ranks : 1;
+  if (blocks > per_row) blocks = per_row;
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n_ranks));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int32_t* sl = static_cast<const int32_t*>(slot);
+  const uint32_t nn = static_cast<uint32_t>(n);
+  if (dg.out != nullptr) {
+    place_rows<true><<<grid, kThreads, 0, st>>>(pl, n_planes, sl, cap, nn, dg);
+  } else {
+    place_rows<false><<<grid, kThreads, 0, st>>>(pl, n_planes, sl, cap, nn, dg);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -206,6 +348,44 @@ int remote_a2a(const void* send, const void* dst_ptrs, int me, int n_ranks,
       static_cast<const uint4*>(send), static_cast<uint32_t* const*>(dst_ptrs),
       me, cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Place the received lanes of n_planes (1..4) receive matrices
+// [n_ranks, cap] by their int32 slot plane: out_k[slot[l]] = in_k[l] for
+// every lane l with 0 <= slot[l] < n; nothing is written for the others.
+// With digit_out non-null, also digit_out[slot[l]] = the digit_bits-wide
+// digit at bit digit_shift of in_{digit_plane}[l] for a lane inside its
+// row's count (cnts: int32[n_ranks] on the device), 1 << digit_bits past
+// it.  The outputs hold n words each.
+int slot_place(const void* in0, const void* in1, const void* in2,
+               const void* in3, void* out0, void* out1, void* out2,
+               void* out3, int n_planes, const void* slot, long long n,
+               int n_ranks, int cap, void* digit_out, int digit_plane,
+               int digit_shift, int digit_bits, const void* cnts,
+               void* stream) {
+  PlacePlanes pl{};
+  const void* ins[kMaxPlanes] = {in0, in1, in2, in3};
+  void* outs[kMaxPlanes] = {out0, out1, out2, out3};
+  for (int q = 0; q < kMaxPlanes; ++q) {
+    pl.in[q] = static_cast<const uint32_t*>(ins[q]);
+    pl.out[q] = static_cast<uint32_t*>(outs[q]);
+  }
+  PlaceDigit dg{};
+  if (digit_out != nullptr) {
+    if (digit_shift < 0 || digit_shift > 31 || digit_bits < 1 || digit_bits > 30) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // the bits that came from the word: at most 32 - shift (ops/kernels.py
+    // digit_at)
+    const int width = digit_bits < 32 - digit_shift ? digit_bits : 32 - digit_shift;
+    dg.out = static_cast<uint32_t*>(digit_out);
+    dg.cnts = static_cast<const int32_t*>(cnts);
+    dg.plane = digit_plane;
+    dg.shift = digit_shift;
+    dg.mask = (1u << width) - 1u;
+    dg.invalid = 1u << digit_bits;
+  }
+  return launch_place(pl, n_planes, slot, n, n_ranks, cap, dg, stream);
 }
 
 // Let `device` read and write the memory of `peer` (once per ordered pair;

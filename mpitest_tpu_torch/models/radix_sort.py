@@ -5,21 +5,23 @@ The design is the reference's (its module docstring has the full
 argument): keys stay sharded ``[P, n]`` across passes, only ``[P, bins]``
 histograms are gathered, and every key moves to its exact global
 digit-stable position, so every rank ends every pass with exactly n keys
-whatever the skew.  Each pass is one local sort: pass 1 a stable sort by
-the digit, later passes one sort keyed on ``(digit, slot)``, where the
-slot of each received lane (:func:`_lane_slots`) comes from the gathered
-histograms alone, so the sort both merges the pending exchange and groups
-by the new digit.  The last pass's merge is one sort by slot.
+whatever the skew.  The slot of each received lane (:func:`_lane_slots`)
+comes from the gathered histograms alone.  The reference merges an
+exchange by sorting on it (later passes sort on ``(digit, slot)``, the
+last merge on the slot); here the valid slots, which tile ``[0, n)``
+once, place the lanes in one launch (``slot_place``, ``ops/exchange.py``)
+and the pass sorts only its n digits, stably, as pass 1 does: the same
+order, from a scatter and an int32 sort instead of a 64-bit sort of
+``P * cap`` lanes.  The last pass's merge is one placement.
 
 Every function here runs all ranks: per-rank values are lists (see
 ``parallel/collectives.py``).  On a mesh across processes (``mesh=``)
 the lists hold this process's ranks and the loops run over
 ``mesh.local_ranks``, each rank keeping its global rank ``r`` in the
 send-count, segment and lane-slot arithmetic; the gathered histograms
-make every pass's decisions the same in every process.  The local sorts
-are the reference's plain sorts (``torch.sort``, stable where the
-reference asks for it); under ``radix_pallas`` pass 1 runs the fused
-radix kernel (K4) with the key words as payload planes.
+make every pass's decisions the same in every process.  The digit sorts
+are ``torch.sort(stable=True)``; under ``radix_pallas`` pass 1 runs the
+fused radix kernel (K4) with the key words as payload planes.
 
 Telemetry: each pass opens a ``radix_pass`` span and the count probe a
 ``negotiate_probe`` span on the active span log (``utils/spans.py``), so
@@ -119,6 +121,13 @@ def _plan(n_words: int, digit_bits: int, passes: int | None) -> list[tuple[int, 
     return plan[:total]
 
 
+def _digit_sort(d: torch.Tensor, words: Words) -> tuple[torch.Tensor, Words]:
+    """Stable sort of a shard's words by their digits ``d``:
+    ``(sorted digits, words)``."""
+    sd, order = torch.sort(d, stable=True)
+    return sd, tuple(w[order] for w in words)
+
+
 def _first_pass(words: Words, w_idx: int, shift: int, digit_bits: int,
                 local_engine: str) -> tuple[torch.Tensor, Words]:
     """Stable sort of one shard by one digit: ``(sorted digits, words)``."""
@@ -129,25 +138,23 @@ def _first_pass(words: Words, w_idx: int, shift: int, digit_bits: int,
         fps = radix.fused_radix_sort((d,) + tuple(words),
                                      diffs=((1 << digit_bits) - 1,) + (0,) * len(words))
         return fps[0], tuple(fps[1:])
-    sd, order = torch.sort(d, stable=True)
-    return sd, tuple(w[order] for w in words)
+    return _digit_sort(d, words)
 
 
 def _merge_pass(recv: Words, recv_cnt: torch.Tensor, slot: torch.Tensor,
                 w_idx: int, shift: int, digit_bits: int, n: int
                 ) -> tuple[torch.Tensor, Words]:
-    """Merge a received exchange and group it by the next digit with one
-    sort keyed on ``(digit, slot)``, unique per valid lane; invalid lanes
-    carry the digit ``2^bits`` and sort past the n valid ones."""
-    cap = slot.shape[1]
-    d = kernels.digit_at(recv[w_idx], shift, digit_bits)
-    c = torch.arange(cap, dtype=torch.int32, device=d.device)[None, :]
-    d = torch.where(c < recv_cnt[:, None], d,
-                    torch.full((), 1 << digit_bits, dtype=torch.int32, device=d.device))
-    key = (d.to(torch.int64) << 32) | slot.to(torch.int64)
-    ks, order = torch.sort(key.reshape(-1))
-    order = order[:n]
-    return (ks[:n] >> 32).to(torch.int32), tuple(r.reshape(-1)[order] for r in recv)
+    """Merge a received exchange and group it by the next digit: place
+    every valid lane at its slot with its digit (``slot_place``), then
+    sort the n digits stably.  A lane at or past its row's count (a
+    dropped peer's, whose slot may still be valid) carries the digit
+    ``2^bits``, as does a slot no lane fills (an overflowed exchange;
+    its words read the exchange's fill): both sort past the valid lanes,
+    as in the reference's sort on ``(digit, slot)``, so the n lanes and
+    their digits are the reference's."""
+    d, *placed = xeng.slot_place(recv, slot, n,
+                                 digit=(w_idx, shift, digit_bits, recv_cnt))
+    return _digit_sort(d, tuple(placed))
 
 
 def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
@@ -164,7 +171,8 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
     ``"pallas"`` takes them from the histogram's clip arithmetic
     (``block_send_segments``), packs with K6, moves with K7, and computes
     the next pass's lane slots in the ``pre_exchange`` window.  Both give
-    the same bytes.  ``local_engine="radix_pallas"`` runs pass 1 with K4.
+    the same bytes.  ``local_engine="radix_pallas"`` runs pass 1 with K4;
+    the later passes' digit sorts are ``torch.sort`` under either engine.
 
     Returns ``(sorted shards, max_send_cnt over passes)``; the latter above
     ``cap`` means an exchange overflowed and the caller regrows.  With a
@@ -233,6 +241,5 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
     out = []
     for i, r in enumerate(local):
         slot = slot_carry[i] if fused else _lane_slots(recv_cnt[i], *prev[i], n, cap, r)
-        order = torch.sort(slot.reshape(-1)).indices[:n]
-        out.append(tuple(p.reshape(-1)[order] for p in recv[i]))
+        out.append(xeng.slot_place(recv[i], slot, n))
     return out, max_cnt

@@ -34,9 +34,17 @@ all-to-all (K7); port of ``mpitest_tpu/ops/exchange.py``.
   host-staged gloo all-to-all across processes: the transport of CPU
   ranks and of the ``lax`` engine, never a stand-in for K7.
 
+* :func:`slot_place` is the receive side of the radix exchange: it writes
+  every received lane of a rank's ``[P, cap]`` receive planes to the
+  output slot the sort computed for it (``models/radix_sort._lane_slots``),
+  in one launch (``slot_place`` of ``csrc/exchange.cu``), optionally with
+  each lane's next radix digit.  The reference applies that permutation
+  by sorting on the slot; the valid slots tile ``[0, n)`` once, so a
+  scatter gives the same bytes in one pass.
+
 A CUDA tensor launches the kernel or raises; the plain versions run for
 CPU tensors only.  Launches count in ``ops/_build.LAUNCHES`` under
-``fused_pass_pack`` and ``remote_a2a``.
+``fused_pass_pack``, ``remote_a2a`` and ``slot_place``.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from typing import TYPE_CHECKING
 
 import torch
 
-from mpitest_tpu_torch.ops import _build
+from mpitest_tpu_torch.ops import _build, kernels
 from mpitest_tpu_torch.utils import spans
 from mpitest_tpu_torch.ops.pack import (
     check_pack_args,
@@ -63,7 +71,7 @@ ENGINES = ("lax", "pallas")
 #: Most word planes one fused pack launch takes.
 MAX_PLANES = 4
 
-_build.LAUNCHES.update({"fused_pass_pack": 0, "remote_a2a": 0})
+_build.LAUNCHES.update({"fused_pass_pack": 0, "remote_a2a": 0, "slot_place": 0})
 
 if TYPE_CHECKING:
     from mpitest_tpu_torch.parallel.mesh import Mesh
@@ -116,24 +124,24 @@ def fused_pass_pack(arrays: Sequence[torch.Tensor], starts: torch.Tensor,
 
 
 def _check_planes(planes: Sequence[torch.Tensor], n_ranks: int) -> bool:
-    """Validate send matrices (contiguous int32 ``[P, cap]`` planes of one
-    shape); True for CUDA tensors, False for CPU ones."""
+    """Validate exchange matrices (contiguous int32 ``[P, cap]`` planes of
+    one shape); True for CUDA tensors, False for CPU ones."""
     shape = planes[0].shape
     if len(shape) != 2 or shape[0] != n_ranks:
-        raise ValueError(f"send matrices must be [{n_ranks}, cap], got {tuple(shape)}")
+        raise ValueError(f"exchange matrices must be [{n_ranks}, cap], got {tuple(shape)}")
     cap = shape[1]
     if cap % 4 or n_ranks * cap >= 1 << 31:
         raise ValueError(f"cap={cap} must be a multiple of 4 with P*cap < 2^31")
     types = {s.device.type for s in planes}
     for s in planes:
         if s.dtype != torch.int32 or s.shape != shape or not s.is_contiguous():
-            raise ValueError("send matrices are contiguous int32 [P, cap] planes "
+            raise ValueError("exchange matrices are contiguous int32 [P, cap] planes "
                              "of one shape")
     if types == {"cpu"}:
         return False
     if types == {"cuda"}:
         return True
-    raise ValueError(f"send matrices on {sorted(types)}: use cpu or cuda, not both")
+    raise ValueError(f"exchange matrices on {sorted(types)}: use cpu or cuda, not both")
 
 
 def remote_a2a_plain(sends: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -206,6 +214,99 @@ def enable_peer_access(devices: Sequence[torch.device]) -> None:
                     raise RuntimeError(
                         f"peer access cuda:{a} -> cuda:{b} failed: "
                         f"{exchange.kernel_error_string(rc).decode()} (code {rc})")
+
+
+# ---------------------------------------------------------------- slot placement
+
+#: ``(word plane, shift, bits, recv_cnt)`` of :func:`slot_place`'s digit
+#: plane: the digit of that plane for a lane before its row's count in
+#: ``recv_cnt`` (int32[P]), ``2^bits`` from it on.
+Digit = tuple[int, int, int, torch.Tensor]
+
+
+def _check_place_args(planes: tuple[torch.Tensor, ...], slot: torch.Tensor, n: int,
+                      digit: Digit | None) -> bool:
+    """Validate a placement (receive planes and their slot plane, contiguous
+    int32 ``[P, cap]`` of one shape; the digit's counts); True for CUDA
+    tensors, False for CPU ones."""
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"1..{MAX_PLANES} planes, got {len(planes)}")
+    if not 0 <= n < 1 << 31:
+        raise ValueError(f"n={n} must lie in [0, 2^31)")
+    on_card = _check_planes((slot,) + planes, slot.shape[0] if slot.dim() else 0)
+    if len({t.device for t in (slot,) + planes}) != 1:
+        raise ValueError("the planes and the slot plane lie on different devices")
+    if digit is not None:
+        w_idx, shift, bits, cnts = digit
+        if not (0 <= w_idx < len(planes) and 0 <= shift < 32 and 1 <= bits <= 30):
+            raise ValueError(f"digit (plane {w_idx}, shift {shift}, bits {bits}) "
+                             f"out of range for {len(planes)} planes")
+        if (cnts.dtype != torch.int32 or cnts.shape != slot.shape[:1]
+                or cnts.device != slot.device or not cnts.is_contiguous()):
+            raise ValueError(f"recv_cnt must be a contiguous int32[{slot.shape[0]}] on "
+                             f"{slot.device}, got {cnts.dtype}{tuple(cnts.shape)} "
+                             f"on {cnts.device}")
+    return on_card
+
+
+def _fills(n_planes: int, digit: Digit | None) -> tuple[int, ...]:
+    """The word every output plane starts from: ``2^bits`` in the digit
+    plane (if asked), the exchange's fill 0 in the word planes, so a slot
+    that no lane fills reads as the padding lane it stands for."""
+    words = (0,) * n_planes
+    return words if digit is None else (1 << digit[2],) + words
+
+
+def slot_place_plain(planes: Sequence[torch.Tensor], slot: torch.Tensor, n: int,
+                     digit: Digit | None = None) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of ``slot_place``: one scatter per plane into
+    n + 1 words, every lane whose slot lies outside ``[0, n)`` sent to the
+    last one, which is dropped."""
+    planes = tuple(planes)
+    vals = planes
+    if digit is not None:
+        w_idx, shift, bits, cnts = digit
+        c = torch.arange(slot.shape[1], dtype=torch.int32, device=slot.device)[None, :]
+        d = torch.where(c < cnts[:, None], kernels.digit_at(planes[w_idx], shift, bits),
+                        torch.full((), 1 << bits, dtype=torch.int32, device=slot.device))
+        vals = (d,) + planes
+    s = slot.reshape(-1).to(torch.int64)
+    idx = torch.where((s >= 0) & (s < n), s, n)
+    outs = []
+    for v, fill in zip(vals, _fills(len(planes), digit)):
+        out = torch.full((n + 1,), fill, dtype=torch.int32, device=slot.device)
+        out[idx] = v.reshape(-1)
+        outs.append(out[:n])
+    return tuple(outs)
+
+
+def slot_place(planes: Sequence[torch.Tensor], slot: torch.Tensor, n: int,
+               digit: Digit | None = None) -> tuple[torch.Tensor, ...]:
+    """Place the received lanes of 1-4 receive planes (``[P, cap]``) at
+    their slots (``slot``, int32 ``[P, cap]``): plane k's lane l lands at
+    ``out[k][slot[l]]`` where ``0 <= slot[l] < n``; other lanes are
+    dropped, and a slot no lane fills reads 0.  Returns n-word planes, led
+    by the digit plane when ``digit`` is given (``(word plane, shift,
+    bits, recv_cnt)``: each placed lane's digit before its row's count,
+    ``2^bits`` from it on and in unfilled slots).  One kernel launch."""
+    planes = tuple(planes)
+    if not _check_place_args(planes, slot, n, digit):
+        return slot_place_plain(planes, slot, n, digit)
+    outs = tuple(torch.full((n,), fill, dtype=torch.int32, device=slot.device)
+                 for fill in _fills(len(planes), digit))
+    words = outs if digit is None else outs[1:]
+    if digit is None:
+        d_args = (None, 0, 0, 0, None)
+    else:
+        w_idx, shift, bits, cnts = digit
+        d_args = (outs[0].data_ptr(), w_idx, shift, bits, cnts.data_ptr())
+    pad = [None] * (MAX_PLANES - len(planes))
+    n_ranks, cap = slot.shape
+    _build.launch(lib(), "slot_place", slot.device,
+                  *[p.data_ptr() for p in planes], *pad,
+                  *[o.data_ptr() for o in words], *pad,
+                  len(planes), slot.data_ptr(), n, n_ranks, cap, *d_args)
+    return outs
 
 
 # ---------------------------------------------------------------- K7 across processes

@@ -15,8 +15,8 @@ Words are ``torch.int32`` tensors of uint32 bits.  A CUDA tensor launches
 ``segment_pack`` of ``csrc/exchange.cu``; a CPU tensor runs
 :func:`segment_pack_plain`; anything else raises, and nothing falls back
 from the kernel to the plain version.  This module also holds the ctypes
-glue of every entry of ``csrc/exchange.cu`` (K6 and K7 live in
-``ops/exchange.py``), so one table sets every signature.
+glue of every entry of ``csrc/exchange.cu`` (K6, K7 and ``slot_place``
+live in ``ops/exchange.py``), so one table sets every signature.
 """
 
 from __future__ import annotations
@@ -41,6 +41,8 @@ SIGNATURES = {
     "fused_pass_pack": (_P, _P, _P, _P, _P, _P, _P, _P, _U, _U, _U, _U, _I,
                         _P, _P, _L, _I, _I, _P),
     "remote_a2a": (_P, _P, _I, _I, _I, _P),
+    "slot_place": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _L, _I, _I,
+                   _P, _I, _I, _I, _P, _P),
 }
 #: The entries of ``csrc/exchange.cu`` that launch nothing (peer access
 #: and the CUDA IPC of the cross-process exchange): no stream argument.

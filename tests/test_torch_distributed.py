@@ -171,6 +171,21 @@ def test_local_engines_match_reference(monkeypatch):
     assert pc["local_engine"] == "bitonic"
 
 
+@pytest.mark.parametrize("local", ["lax", "radix_pallas"])
+def test_eight_rank_int64_radix_matches_reference(local, monkeypatch):
+    """int64 keys on eight ranks: four 16-bit passes, so three merge
+    passes (placement by slot with the next digit, then the stable digit
+    sort) and the final placement, under both local engines (K4 runs
+    pass 1 only under radix_pallas)."""
+    from mpitest_tpu_torch.ops import radix
+
+    before = radix.pass_launches()
+    _, pc = _check(_keys(np.int64, 8192, 22), 8, "radix", "pallas", monkeypatch,
+                   local=local)
+    assert pc["exchange_passes"] == 4 and pc["local_engine"] == local
+    assert radix.pass_launches() - before == (8 * 2 if local == "radix_pallas" else 0)
+
+
 def test_sample_bitonic_int64_matches_reference(monkeypatch):
     """64-bit sample sort under bitonic: the pair engine (K2 + K3)."""
     x = _keys(np.int64, 3000, 11)
