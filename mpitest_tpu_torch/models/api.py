@@ -6,7 +6,8 @@ order-preserving uint32 words, sort them locally, verify sortedness and
 the multiset fingerprint, and decode back to the input dtype.  A numpy
 array is the host path (host encode + fingerprint, one copy to the
 card); a ``torch.Tensor`` is the device-resident path (encode and
-fingerprint on its device).
+fingerprint on its device).  Either is encoded once: the fingerprint and
+the sort share the words.
 
 ``sort(x, mesh=make_mesh(P))`` with P > 1 runs the distributed branch
 (``api.py:1564-2028``): the keys are padded to ``P*n`` with the maximum
@@ -383,49 +384,32 @@ def _resolve_local_engine(engine: str, n_words: int, n: int) -> str:
     return "bitonic" if _use_bitonic(engine, n_words, n) else "lax"
 
 
-def _local_pair_sort(x: Any, is_device: bool, codec: KeyCodec,
-                     device: torch.device, tracer: Tracer,
-                     words_np: tuple[np.ndarray, ...] | None = None,
-                     ) -> tuple[torch.Tensor, ...]:
-    """Single-card 64-bit sort orchestration, adaptive like the reference:
+def _local_pair_sort(words: Words, same: tuple[bool, ...], dup: bool,
+                     tracer: Tracer, device_program: bool) -> Words:
+    """Single-card 64-bit sort of encoded words on their device, adaptive
+    like the reference:
 
-    1. constant-word shortcut: a word with zero range never moves; the
-       1-word engine sorts the other word.
-    2. hi-duplication sniff: heavy duplication would leave equal-hi runs
-       longer than the run fix-up depth, so it goes to the ``lax`` sort.
+    1. constant-word shortcut: a word with zero range (``same``) never
+       moves; the 1-word engine sorts the other word.
+    2. hi-duplication sniff (``dup``): heavy duplication would leave
+       equal-hi runs longer than the run fix-up depth, so it goes to the
+       ``lax`` sort.
     3. pair engine (``kernels.sort_two_words_bitonic``, K2 + K3); the
        residual flag (runs the sniff missed) falls back to the ``lax``
        sort — correctness never depends on the sniff.
 
-    Device-resident input takes the reference device program's sniff
-    sample, sorts a lone varying word with the bitonic engine whatever the
-    knob (the reference's fused device program does), and reports the
-    fused fallback as ``bitonic_pair+lax_fallback``; host input takes the
-    host sniff and the knob's one-word engine (under ``radix_pallas`` the
+    ``same`` and ``dup`` are read where the words were encoded.  The
+    reference's fused device program (``device_program``, device-resident
+    input) sorts a lone varying word with the bitonic engine whatever the
+    knob and reports its fallback as ``bitonic_pair+lax_fallback``; host
+    input takes the knob's one-word engine (under ``radix_pallas`` the
     full-plan K4 inside its envelope).  Returns the sorted device words."""
-    n = x.numel() if is_device else np.asarray(x).size
-    one_w = "bitonic" if is_device else _resolve_local_engine(_local_engine(), 1, n)
-    if is_device:
-        with tracer.phase("encode"):
-            words = codec.encode_torch(x.reshape(-1))
-            same = []
-            for w in words:
-                flat = torch.all(w == w[0])
-                with spans.host_sync("encode.same"):
-                    same.append(bool(flat))
-            dup = _device_hi_dup_sniff(words[0])
-    else:
-        with tracer.phase("encode"):
-            if words_np is None:
-                words_np = codec.encode(np.asarray(x).reshape(-1))
-            same = tuple(bool(w.min() == w.max()) for w in words_np)
-            dup = _host_hi_dup_sniff(words_np[0])
-        with tracer.phase("device_put"):
-            words = tuple(to_device_words(w, device) for w in words_np)
+    n = int(words[0].numel())
+    one_w = "bitonic" if device_program else _resolve_local_engine(_local_engine(), 1, n)
     if all(same):  # all keys identical: already sorted
         tracer.counters["local_engine"] = _PAIR_CODES[0]
         return words
-    key = (n, device.type)
+    key = (n, words[0].device.type)
     for const_w, sort_w in ((0, 1), (1, 0)):
         if same[const_w]:
             tracer.counters["local_engine"] = f"bitonic_1w{sort_w}"
@@ -445,7 +429,7 @@ def _local_pair_sort(x: Any, is_device: bool, codec: KeyCodec,
                                        kernels.sort_two_words_bitonic, *words)
         with spans.host_sync("pair.residual"):
             bad = bool(bad)
-    tracer.counters["local_engine"] = _PAIR_CODES[5 if bad and is_device else 4]
+    tracer.counters["local_engine"] = _PAIR_CODES[5 if bad and device_program else 4]
     if not bad:
         return (hi_s, lo_s)
     tracer.verbose("pair engine left residual runs (hi duplication the "
@@ -797,20 +781,31 @@ def _plan_run(tracer: Tracer, algorithm: str, N: int, n_ranks: int,
 def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
                return_result: bool, exchange_engine: str | None = None,
                algorithm: str = "radix") -> Any:
-    """The one-rank branch of the reference's ``_sort_impl``."""
-    if isinstance(x, StagedIngest):
-        return _sort_staged_local(x, device, tracer, return_result, exchange_engine,
-                                  algorithm)
+    """The one-rank branch of the reference's ``_sort_impl``: the input
+    becomes words once, where it lives (a tensor on its device, a host
+    array on the host, a :class:`StagedIngest` already is words), the input
+    fingerprint is taken from those words, one local dispatch sorts them
+    and one finish verifies and returns them.
+
+    64-bit keys from 2^13 (engine not ``lax``) take the pair route
+    (:func:`_local_pair_sort`); the rest one local sort with the resolved
+    engine.  Host input alone has a profile, so only it can take the
+    planner's passthrough rung, and host and staged words plan K4's passes
+    from their spread.  A staged input keeps the reference's staged route
+    (``api.py:1452-1467``): one local sort of its padded shard, verified
+    against the ingest's fingerprint, its words dropped under donation
+    once the sort has read them."""
+    staged = x if isinstance(x, StagedIngest) else None
     is_device = isinstance(x, torch.Tensor)
-    if is_device:
+    if staged is not None:
+        dtype, N = staged.dtype, staged.n_valid
+    elif is_device:
         if x.device != device:
             x = x.to(device)
-        dtype = numpy_dtype(x.dtype)
-        N = int(x.numel())
+        dtype, N = numpy_dtype(x.dtype), int(x.numel())
     else:
         x = np.asarray(x)
-        dtype = np.dtype(x.dtype)
-        N = int(x.size)
+        dtype, N = np.dtype(x.dtype), int(x.size)
     codec = codec_for(dtype)
     if N == 0:
         out = np.empty(0, dtype)
@@ -819,68 +814,56 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
     engine = _local_engine()
     # recorded on every run, exchange or not, as the reference does
     tracer.counters["exchange_engine"] = _resolve_exchange_engine(exchange_engine)
-    verdict = _plan_run(tracer, algorithm, N, 1, None if is_device else x,
-                        verify_on)
+    verdict = _plan_run(tracer, algorithm, N, 1,
+                        x if staged is None and not is_device else None, verify_on)
     plan = verdict.plan
+    pair = (staged is None and codec.n_words == 2 and engine != "lax"
+            and N >= (1 << bitonic.MIN_SORT_LOG2))
 
-    def _finish_local(res: DistributedSortResult,
-                      fp: vfy.Fingerprint | None) -> Any:
-        if plan is not None:
-            # one rank has no ladder: the rung is the local path itself
-            plan.decide("ladder", chosen="local")
-        if verify_on and not _check_result(tracer, res, fp):
-            raise SortIntegrityError(
-                "single-device sort result failed verification")
-        if return_result:
-            return res
-        with tracer.phase("decode"):
-            return res.to_numpy(tracer=tracer)
-
-    fp_in = None
-    if (codec.n_words == 2 and engine != "lax"
-            and N >= (1 << bitonic.MIN_SORT_LOG2)):
-        words_np = None
-        if is_device:
-            if verify_on:
-                with tracer.phase("verify"):
-                    fp_in = vfy.fingerprint_device_input(x, dtype)
-        else:
-            # encode once: the fingerprint and the pair sort share the words
-            with tracer.phase("encode"):
-                words_np = codec.encode(x.reshape(-1))
-            if verify_on:
-                with tracer.phase("verify"):
-                    fp_in = vfy.fingerprint_host(words_np)
-        out = _local_pair_sort(x, is_device, codec, device, tracer,
-                               words_np=words_np)
-        return _finish_local(DistributedSortResult(out, N, dtype), fp_in)
-
-    resolved = _resolve_local_engine(engine, codec.n_words, N)
-    tracer.counters["local_engine"] = resolved
-    if is_device:
-        # encode once: the fingerprint and the sort share the words
+    # the words, once, where the input lives; the pair route's
+    # observations (each word constant or not, the hi-duplication sniff)
+    # are read from them there
+    words_np = None
+    if staged is not None:
+        words = staged.words[0]
+    elif is_device:
         with tracer.phase("encode"):
             words = codec.encode_torch(x.reshape(-1))
-        if verify_on:
-            with tracer.phase("verify"):
-                fp_in = vfy.fingerprint_words(words, N)
-        with tracer.phase("sort"):
-            out = _traced_call(
-                tracer, "local_device", (dtype.name, resolved, N, device.type),
-                kernels.local_sort, words, resolved)
-        del words   # the verifier runs without them
+            if pair:
+                same = []
+                for w in words:
+                    flat = torch.all(w == w[0])
+                    with spans.host_sync("encode.same"):
+                        same.append(bool(flat))
+                dup = _device_hi_dup_sniff(words[0])
     else:
         with tracer.phase("encode"):
             words_np = codec.encode(x.reshape(-1))
-        if verify_on:
-            with tracer.phase("verify"):
-                fp_in = vfy.fingerprint_host(words_np)
+            if pair:
+                same = [bool(w.min() == w.max()) for w in words_np]
+                dup = _host_hi_dup_sniff(words_np[0])
+    # the input fingerprint from the same words, read before any sort
+    fp_in = staged.fingerprint if staged is not None else None
+    if verify_on and staged is None:
+        with tracer.phase("verify"):
+            fp_in = (vfy.fingerprint_host(words_np) if words_np is not None
+                     else vfy.fingerprint_words(words, N))
+    if words_np is not None:
         with tracer.phase("device_put"):
             words = tuple(to_device_words(w, device) for w in words_np)
+
+    if pair:
+        out = _local_pair_sort(words, tuple(same), dup, tracer,
+                               device_program=is_device)
+    else:
+        n = int(words[0].numel())   # a staged shard's length, pads included
+        resolved = _resolve_local_engine(engine, codec.n_words, n)
+        if staged is None:
+            tracer.counters["local_engine"] = resolved
         # planner rung zero: the profile read fully sorted, so the input
         # words are a sort candidate; one verify replaces the sort when it
         # passes, and a miss costs that verify before the sort runs
-        if verdict.passthrough(verify_on) and fp_in is not None:
+        if words_np is not None and verdict.passthrough(verify_on) and fp_in is not None:
             cand = DistributedSortResult(words, N, dtype)
             if _check_result(tracer, cand, fp_in):
                 tracer.count("planner_passthrough", 1)
@@ -894,56 +877,31 @@ def _sort_impl(x: Any, device: torch.device, tracer: Tracer,
             tracer.count("planner_passthrough_miss", 1)
             if plan is not None:
                 plan.actual("planner", misses=1)
-        # fused-engine pass compaction: the host words are in hand, so the
-        # per-word spread quantized to bit widths plans the passes
-        diffs = (tuple((1 << int(d).bit_length()) - 1
-                       for d in _word_diffs(words_np))
-                 if resolved == "radix_pallas" else None)
+        # fused-engine pass compaction: the per-word spread of host words
+        # (or the ingest's fold of it) quantized to bit widths plans the
+        # passes; device words run the full plan
+        diffs = None
+        if resolved == "radix_pallas" and not is_device:
+            spread = staged.word_diffs if staged is not None else _word_diffs(words_np)
+            if spread is not None:
+                diffs = tuple((1 << int(d).bit_length()) - 1 for d in spread)
+        label, key = (("local_device", (dtype.name, resolved, N, device.type))
+                      if is_device else
+                      ("local", (codec.n_words, resolved, diffs, n, device.type)))
+        donate = staged is not None and _donation_enabled((device,))
+        if donate:
+            staged.consumed = True
         with tracer.phase("sort"):
-            out = _traced_call(tracer, "local",
-                               (codec.n_words, resolved, diffs, N, device.type),
-                               kernels.local_sort, words, resolved, diffs)
-    return _finish_local(DistributedSortResult(out, N, dtype), fp_in)
-
-
-def _sort_staged_local(staged: StagedIngest, device: torch.device, tracer: Tracer,
-                       return_result: bool, exchange_engine: str | None,
-                       algorithm: str = "radix") -> Any:
-    """The reference's staged one-rank route (``api.py:1452-1467``): one
-    local sort of the staged words with the resolved engine (K1 for one
-    word, the pair engine K2 + K3 with its residual fallback for two, K4
-    under ``radix_pallas`` with the pass plan compacted from the
-    ingest's ``word_diffs``), verified against the ingest's fingerprint.
-    Under donation the staged words are dropped once the sort has read
-    them."""
-    dtype = staged.dtype
-    codec = codec_for(dtype)
-    N = staged.n_valid
-    verify_on = supervision.verify_enabled()
-    tracer.counters["exchange_engine"] = _resolve_exchange_engine(exchange_engine)
-    # staged words carry no host profile: the planner chooses static
-    plan = _plan_run(tracer, algorithm, N, 1, None, verify_on).plan
-    words = staged.words[0]
-    resolved = _resolve_local_engine(_local_engine(), codec.n_words,
-                                     int(words[0].numel()))
-    diffs = (tuple((1 << int(d).bit_length()) - 1 for d in staged.word_diffs)
-             if resolved == "radix_pallas" and staged.word_diffs is not None
-             else None)
-    donate = _donation_enabled((device,))
-    if donate:
-        staged.consumed = True
-    with tracer.phase("sort"):
-        out = _traced_call(tracer, "local",
-                           (codec.n_words, resolved, diffs,
-                            int(words[0].numel()), device.type),
-                           kernels.local_sort, words, resolved, diffs)
-    if donate:
-        staged.words = []
+            out = _traced_call(tracer, label, key, kernels.local_sort, words,
+                               resolved, diffs)
+        if donate:
+            staged.words = []
     del words   # the last reference here: the verifier runs without them
-    res = DistributedSortResult(out, N, dtype)
     if plan is not None:
+        # one rank has no ladder: the rung is the local path itself
         plan.decide("ladder", chosen="local")
-    if verify_on and not _check_result(tracer, res, staged.fingerprint):
+    res = DistributedSortResult(out, N, dtype)
+    if verify_on and not _check_result(tracer, res, fp_in):
         raise SortIntegrityError("single-device sort result failed verification")
     if return_result:
         return res

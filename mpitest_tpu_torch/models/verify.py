@@ -207,7 +207,9 @@ def fingerprint_words(words: "tuple[torch.Tensor, ...]", n_valid: int) -> Finger
 
 
 def fingerprint_device_input(x: torch.Tensor, dtype: object) -> Fingerprint:
-    """Fingerprint of raw device-resident keys (encode on the device)."""
+    """Fingerprint of raw device-resident keys (encode on the device).
+    ``sort`` folds the words it encodes itself (:func:`fingerprint_words`);
+    this form is the one the tests hold against the reference's."""
     return fingerprint_words(codec_for(dtype).encode_torch(x.reshape(-1)), x.numel())
 
 

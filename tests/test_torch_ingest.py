@@ -34,7 +34,7 @@ from mpitest_tpu.utils import native_encode as ref_native
 from mpitest_tpu.utils.trace import Tracer as RefTracer
 from mpitest_tpu_torch.models import api, ingest, verify
 from mpitest_tpu_torch.ops import radix
-from mpitest_tpu_torch.ops.keys import codec_for, to_host_words
+from mpitest_tpu_torch.ops.keys import KeyCodec, codec_for, to_host_words
 from mpitest_tpu_torch.parallel.mesh import make_mesh
 from mpitest_tpu_torch.utils import knobs, native_encode
 from mpitest_tpu_torch.utils.trace import Tracer
@@ -226,11 +226,22 @@ def _check_sorted(got, want, pt, rt, x):
 def test_sort_staged_equals_reference(P, algo, monkeypatch):
     rng = np.random.default_rng(30 + P)
     x = _keys(rng, "int32", 12_345)
+    encodes = []
+    encode_torch = KeyCodec.encode_torch
+
+    def counted(self, t):
+        encodes.append(t.dtype)
+        return encode_torch(self, t)
+
+    monkeypatch.setattr(KeyCodec, "encode_torch", counted)
     got, want, pt, rt = _sort_both(x, P, algo, monkeypatch, staged=True)
     _check_sorted(got, want, pt, rt, x)
     names_p = {s.name for s in pt.spans.spans}
     names_r = {s.name for s in rt.spans.spans}
     assert INGEST_SPANS <= names_p and INGEST_SPANS <= names_r
+    if P == 1:
+        # the staged words are the words: one rank encodes nothing more
+        assert encodes == []
 
 
 @pytest.mark.parametrize("dtype", ["int64", "float64", "float32"])

@@ -23,6 +23,7 @@ from mpitest_tpu.models import api as ref_api
 from mpitest_tpu.parallel.mesh import make_mesh
 from mpitest_tpu.utils.trace import Tracer as RefTracer
 from mpitest_tpu_torch.models import api
+from mpitest_tpu_torch.ops.keys import KeyCodec
 from mpitest_tpu_torch.utils.trace import Tracer
 
 N = 15_000  # > 2^13, past the pad break-even of 2^14
@@ -166,10 +167,13 @@ def test_return_result_and_median_probe(dtype, mesh1, monkeypatch):
         assert got.median_probe() == want.median_probe()
 
 
-@pytest.mark.parametrize("dtype", [np.int32, np.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.float64],
+                         ids=["int32", "int64", "float64"])
 def test_device_resident_tensor_input(dtype, mesh1, monkeypatch):
     """A torch tensor is the device-resident path (encode + fingerprint on
-    its device); same bytes and route as the reference's device path."""
+    its device); same bytes and route as the reference's device path, and
+    the keys are encoded once: the fingerprint and the sort share the
+    words."""
     import jax
 
     from mpitest_tpu import compat
@@ -180,9 +184,19 @@ def test_device_resident_tensor_input(dtype, mesh1, monkeypatch):
     with compat.enable_x64(True):
         want = ref_api.sort(jax.device_put(x, jax.devices()[0]), mesh=mesh1,
                             tracer=rt)
+    encodes = []
+    encode_torch = KeyCodec.encode_torch
+
+    def counted(self, t):
+        encodes.append(t.dtype)
+        return encode_torch(self, t)
+
+    monkeypatch.setattr(KeyCodec, "encode_torch", counted)
     got = mt.sort(torch.from_numpy(x), device="cpu", tracer=pt)
     assert got.tobytes() == want.tobytes()
     assert _engine(pt.counters) == _engine(rt.counters)
+    assert pt.counters["verify_runs"] == 1
+    assert len(encodes) == 1
 
 
 def test_tracer_records_phases_and_nested_spans(monkeypatch, capsys):
