@@ -44,6 +44,12 @@ Phases, each failing loudly (any exception exits non-zero):
              each with faults at the seams of its vectors, warps and blocks and
              at the last pair, every row equal to the plain version's;
              timed beside its bound and the PyTorch chain it replaces.
+             The placement (``slot_place``, :func:`slot_place_phase`) and
+             the digit sort (``digit_count`` + ``digit_scatter``,
+             :func:`digit_sort_phase`) on rank 0's calls of one
+             eight-rank radix sort of 2^28 int32 keys, the sort's exact
+             launches of each, against the plain versions, timed beside
+             their bounds and the library calls they replaced.
              Tolerance: exact (integer words; every byte must match).
 3. main    — three paths, each with the launch counts set to 0 just
              before it and read just after; in (a), (b), (d) and (e) each
@@ -2481,6 +2487,170 @@ def slot_place_phase(log, card: str, sizes: dict = SLOT_PLACE_SIZES) -> dict:
     return out
 
 
+
+#: The digit sort phase's size: the radix cell's (2^28 int32 keys over
+#: eight ranks of the card, two 16-bit passes).
+DIGIT_SORT_SIZES = {"keys": 1 << 28, "ranks": 8}
+
+
+def digit_sort_phase(log, card: str, sizes: dict = DIGIT_SORT_SIZES) -> dict:
+    """The distributed radix's digit sort (``digit_count`` +
+    ``digit_scatter``, ``ops/radix.py``) at the radix cell's shape,
+    against its plain version and the library calls it replaced.
+
+    One eight-rank radix ``sort()`` of ``sizes["keys"]`` int32 keys runs
+    with ``radix.digit_sort`` and ``radix.digit_count`` wrapped, keeping
+    rank 0's calls: pass 1's sort (a bit field of the word), the merge
+    pass's (the digit plane, with its sentinel) and the probe's count.
+    The sort must launch exactly P counts for the probe, and a count and
+    two scatters a rank a pass, and equal ``torch.sort``.  Each kept call
+    is checked byte for byte against the plain version on the card, then
+    timed by CUDA events (warm median of ``REPS``): the call (its memsets
+    and launches), the kernels alone (profiler: ``k4_digit_count`` and
+    ``k4_digit_scatter``), the plain version, and the library calls it
+    replaced (``torch.sort(stable=True)`` of the digit and a gather of
+    every plane; the probe's sort and ``histogram_sorted``).  Bound: the
+    key read once by the count, and every plane read and written once a
+    scatter pass, at 3.35 TB/s."""
+    import torch
+
+    import mpitest_tpu_torch as mt
+    from mpitest_tpu_torch.ops import _build, kernels, radix
+    from mpitest_tpu_torch.parallel.mesh import make_mesh
+
+    out: dict = {"card": card}
+    dev = torch.device("cuda")
+
+    def events(fn, reps: int = REPS) -> float:
+        fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        return statistics.median(ms)
+
+    def kernel_ms(fn) -> dict[str, float]:
+        """Device ms a call of each ``k4_digit_`` kernel, summed over the
+        call's launches (profiler, mean of ``REPS`` calls)."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                fn()
+            torch.cuda.synchronize()
+        got: dict[str, float] = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and "k4_digit_" in e.name:
+                name = "count" if "k4_digit_count" in e.name else "scatter"
+                got[name] = got.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / REPS
+        if not got:
+            raise AssertionError("digit sort: no k4_digit_ kernel in the profile")
+        return got
+
+    calls: dict[str, tuple] = {}
+    real_sort, real_count = radix.digit_sort, radix.digit_count
+
+    def keep_sort(words, bits, digits=None, w_idx=0, shift=0):
+        calls.setdefault("first" if digits is None else "merge",
+                         (tuple(words), bits, digits, w_idx, shift))
+        return real_sort(words, bits, digits, w_idx, shift)
+
+    def keep_count(word, shift, bits):
+        calls.setdefault("probe", (word, shift, bits))
+        return real_count(word, shift, bits)
+
+    P = sizes["ranks"]
+    g = torch.Generator(device=dev).manual_seed(2500)
+    x = torch.randint(-(2**31), 2**31, (sizes["keys"],), dtype=torch.int32, device=dev,
+                      generator=g)
+    before = dict(_build.LAUNCHES)
+    radix.digit_sort, radix.digit_count = keep_sort, keep_count
+    try:
+        res = mt.sort(x, algorithm="radix", mesh=make_mesh(P), return_result=True)
+    finally:
+        radix.digit_sort, radix.digit_count = real_sort, real_count
+    launches = {k: _build.LAUNCHES[k] - before[k] for k in ("digit_count", "digit_scatter")}
+    if launches != {"digit_count": P + 2 * P, "digit_scatter": 2 * 2 * P}:
+        raise AssertionError(f"digit sort: launches {launches} in one sort, expected "
+                             f"{P} + {2 * P} counts and {4 * P} scatters")
+    if not torch.equal(torch.cat([s[0] for s in res.shards]) ^ -(2**31),
+                       torch.sort(x).values):
+        raise AssertionError("digit sort: the eight-rank sort differs from torch.sort")
+    del res
+    out["launches_per_sort"] = launches
+    for key in ("first", "merge", "probe"):
+        if key == "probe":
+            word, shift, bits = calls[key]
+            n = word.numel()
+            got = real_count(word, shift, bits)
+            want = radix.digit_count_plain(word, shift, bits)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+
+            def now():
+                return real_count(word, shift, bits)
+
+            def plain():
+                return radix.digit_count_plain(word, shift, bits)
+
+            def library():
+                d = kernels.digit_at(word, shift, bits)
+                return kernels.histogram_sorted(torch.sort(d).values, 1 << bits)
+            planes, nbytes = 1, 4 * n
+        else:
+            words, bits, digits, w_idx, shift = calls[key]
+            n = words[0].numel()
+            got = real_sort(words, bits, digits, w_idx, shift)
+            want = radix.digit_sort_plain(words, bits, digits, w_idx, shift)
+            same = ((got[0] is None) == (want[0] is None)
+                    and (got[0] is None or torch.equal(got[0], want[0]))
+                    and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+                    and all(torch.equal(a, b) for a, b in zip(got[2], want[2])))
+
+            def now():
+                return real_sort(words, bits, digits, w_idx, shift)
+
+            def plain():
+                return radix.digit_sort_plain(words, bits, digits, w_idx, shift)
+
+            def library():
+                d = digits if digits is not None else kernels.digit_at(words[w_idx],
+                                                                        shift, bits)
+                order = torch.sort(d, stable=True).indices
+                return [w[order] for w in words]
+            planes = len(words) + (digits is not None)
+            key_bits = bits + 1 if digits is not None else min(bits, 32 - shift)
+            nbytes = 4 * n * (1 + 2 * planes * len(radix.sweep_split(key_bits)))
+        if not same:
+            raise AssertionError(f"digit sort {key}: kernel differs from the plain version")
+        t_call = events(now)
+        t_kernels = kernel_ms(now)
+        t_plain = events(plain, reps=PLAIN_REPS)
+        t_library = events(library)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        t_kernel = sum(t_kernels.values())
+        out[key] = {"n": n, "bits": bits, "planes": planes, "call_ms": t_call,
+                    "kernel_ms": t_kernel, "count_ms": t_kernels.get("count", 0.0),
+                    "scatter_ms": t_kernels.get("scatter", 0.0), "plain_ms": t_plain,
+                    "library_ms": t_library, "bound_ms": bound,
+                    "kernel_share": bound / t_kernel}
+        log(f"[digit_sort] {key} of rank 0, 2^{n.bit_length() - 1} keys, {bits}-bit digit, "
+            f"{planes} plane(s): kernels {t_kernel:.4f} ms (count "
+            f"{t_kernels.get('count', 0.0):.4f}, scatter {t_kernels.get('scatter', 0.0):.4f}; "
+            f"{100 * bound / t_kernel:.1f}% of the {bound:.4f} ms bound), call {t_call:.4f} "
+            f"ms, plain version on the card {t_plain:.3f} ms, the library calls it replaced "
+            f"{t_library:.3f} ms | card {card}")
+    calls.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2790,6 +2960,7 @@ def main() -> int:
         raise AssertionError("K8 n=4097 did not raise")
     verify_phase(log, card)
     slot_place_phase(log, card)
+    digit_sort_phase(log, card)
     for name, count in bitonic.LAUNCHES.items():
         if count <= before[name]:
             raise AssertionError(f"kernel {name} never launched in phase 2")
@@ -3091,11 +3262,22 @@ def main() -> int:
         run_mesh_case("radix P=8 sort(np int32 2^24 sorted-skew)", xs, "radix",
                       card_sort_oracle(xs), "lax", skew_restage=lambda v: v >= 1)
 
+    def digit_launches(label: str, counts: int, scatters: int) -> None:
+        """The digit sort's launches since the path began: one count a
+        rank for the probe and a rank a digit sort, two scatters a 16-bit
+        digit sort."""
+        got = (bitonic.LAUNCHES["digit_count"], bitonic.LAUNCHES["digit_scatter"])
+        if got != (counts, scatters):
+            raise AssertionError(f"{label}: digit counts and scatters {got} != "
+                                 f"{(counts, scatters)}")
+
     def mesh_lax_path() -> None:
         with env(SORT_EXCHANGE_ENGINE="lax"):
             x = int32_keys(1 << 26)
             run_mesh_case("radix P=8 lax engine sort(np int32 2^26)", x, "radix",
                           card_sort_oracle(x), "lax", exchange_engine="lax")
+            # the probe, then two passes of 16-bit digits
+            digit_launches("radix P=8 lax engine", RANKS + 2 * RANKS, 2 * 2 * RANKS)
 
     def mesh_k4_path() -> None:
         with local_engine("radix_pallas"):
@@ -3108,6 +3290,8 @@ def main() -> int:
                 raise AssertionError("K4 did not run pass 1 of every rank (one "
                                      "histogram and two 8-bit passes of the 16-bit "
                                      f"digit each): {hists} histograms")
+            # the probe, then the merge pass alone (K4 ran pass 1)
+            digit_launches("radix P=8 radix_pallas", RANKS + RANKS, 2 * RANKS)
 
     def mesh_sample_path() -> None:
         x = int32_keys(1 << 28)
@@ -3389,10 +3573,12 @@ def main() -> int:
     run_path("the key-file CLI", (K1, K4, K4H), cli_path)
     K5, K6, K7 = "segment_pack", "fused_pass_pack", "remote_a2a"
     SP = "slot_place"
-    mesh_launches = run_path("radix on eight ranks (pallas engine)", (K6, K7, SP),
+    DC, DS = "digit_count", "digit_scatter"
+    mesh_launches = run_path("radix on eight ranks (pallas engine)", (K6, K7, SP, DC, DS),
                              mesh_radix_path)
-    lax_launches = run_path("radix on eight ranks (lax engine)", (K5, SP), mesh_lax_path)
-    run_path("radix on eight ranks under radix_pallas", (K4, K4H, K6, K7, SP),
+    lax_launches = run_path("radix on eight ranks (lax engine)", (K5, SP, DC, DS),
+                            mesh_lax_path)
+    run_path("radix on eight ranks under radix_pallas", (K4, K4H, K6, K7, SP, DC, DS),
              mesh_k4_path)
     run_path("sample sort on eight ranks", (K1, K2, K3, K6, K7), mesh_sample_path)
     run_path("the key-file CLI, SORT_RANKS=8", (K1, K6, K7), mesh_cli_path)

@@ -11,7 +11,7 @@ exchange by sorting on it (later passes sort on ``(digit, slot)``, the
 last merge on the slot); here the valid slots, which tile ``[0, n)``
 once, place the lanes in one launch (``slot_place``, ``ops/exchange.py``)
 and the pass sorts only its n digits, stably, as pass 1 does: the same
-order, from a scatter and an int32 sort instead of a 64-bit sort of
+order, from a scatter and a sort of n digits instead of a 64-bit sort of
 ``P * cap`` lanes.  The last pass's merge is one placement.
 
 Every function here runs all ranks: per-rank values are lists (see
@@ -19,9 +19,13 @@ Every function here runs all ranks: per-rank values are lists (see
 the lists hold this process's ranks and the loops run over
 ``mesh.local_ranks``, each rank keeping its global rank ``r`` in the
 send-count, segment and lane-slot arithmetic; the gathered histograms
-make every pass's decisions the same in every process.  The digit sorts
-are ``torch.sort(stable=True)``; under ``radix_pallas`` pass 1 runs the
-fused radix kernel (K4) with the key words as payload planes.
+make every pass's decisions the same in every process.  Every digit
+sort is ``radix.digit_sort`` (``ops/radix.py``), a stable counting sort
+that also gives the digit's histogram, and the probe counts with its
+count alone (``radix.digit_count``); the reference sorts there with
+``lax.sort`` and takes the histogram from the sorted digits, which this
+equals.  Under ``radix_pallas`` pass 1 runs the fused radix kernel (K4)
+with the key words as payload planes.
 
 Telemetry: each pass opens a ``radix_pass`` span and the count probe a
 ``negotiate_probe`` span on the active span log (``utils/spans.py``), so
@@ -100,12 +104,9 @@ def radix_probe_spmd(words: Sequence[Words], digit_bits: int,
     ``[P, P]`` matrix, row r the counts rank r sends (self included), on
     the first (local) rank's device."""
     n = words[0][0].numel()
-    n_bins = 1 << digit_bits
     with spans.maybe_span("negotiate_probe", algorithm="radix",
                           ranks=n_ranks, n=n, trace_time=False):
-        hs = [kernels.histogram_sorted(
-            torch.sort(kernels.digit_at(w[-1], 0, digit_bits)).values, n_bins)[0]
-            for w in words]
+        hs = [radix.digit_count(w[-1], 0, digit_bits)[0] for w in words]
         H = coll.all_gather(hs, mesh)                             # [P, bins]
         mine = [coll.block_send_counts(H[i], n, r)
                 for i, r in enumerate(coll.local_ranks(n_ranks, mesh))]
@@ -121,40 +122,47 @@ def _plan(n_words: int, digit_bits: int, passes: int | None) -> list[tuple[int, 
     return plan[:total]
 
 
+Hist = tuple[torch.Tensor, torch.Tensor]
+
+
 def _digit_sort(d: torch.Tensor, words: Words) -> tuple[torch.Tensor, Words]:
-    """Stable sort of a shard's words by their digits ``d``:
-    ``(sorted digits, words)``."""
-    sd, order = torch.sort(d, stable=True)
-    return sd, tuple(w[order] for w in words)
+    """Stable sort of a shard's words by their digits ``d`` (values in
+    ``[0, 2^16]``: a digit of up to 16 bits or a merge pass's sentinel
+    ``2^bits``): ``(sorted digits, words)``, the merge pass's sort without
+    its histogram."""
+    sd, sw, _ = radix.digit_sort(words, radix.DIGIT_SORT_MAX_BITS, digits=d)
+    return sd, sw
 
 
 def _first_pass(words: Words, w_idx: int, shift: int, digit_bits: int,
-                local_engine: str) -> tuple[torch.Tensor, Words]:
-    """Stable sort of one shard by one digit: ``(sorted digits, words)``."""
-    d = kernels.digit_at(words[w_idx], shift, digit_bits)
+                local_engine: str) -> tuple[torch.Tensor | None, Words, Hist]:
+    """Stable sort of one shard by one digit: ``(sorted digits or None,
+    words, (h, lo))``."""
     if local_engine == "radix_pallas":
         # a stable counting sort: K4 with the words as payload planes
         # (diff 0: never a sort key)
+        d = kernels.digit_at(words[w_idx], shift, digit_bits)
         fps = radix.fused_radix_sort((d,) + tuple(words),
                                      diffs=((1 << digit_bits) - 1,) + (0,) * len(words))
-        return fps[0], tuple(fps[1:])
-    return _digit_sort(d, words)
+        return fps[0], tuple(fps[1:]), kernels.histogram_sorted(fps[0], 1 << digit_bits)
+    return radix.digit_sort(words, digit_bits, w_idx=w_idx, shift=shift)
 
 
 def _merge_pass(recv: Words, recv_cnt: torch.Tensor, slot: torch.Tensor,
                 w_idx: int, shift: int, digit_bits: int, n: int
-                ) -> tuple[torch.Tensor, Words]:
+                ) -> tuple[torch.Tensor, Words, Hist]:
     """Merge a received exchange and group it by the next digit: place
     every valid lane at its slot with its digit (``slot_place``), then
-    sort the n digits stably.  A lane at or past its row's count (a
-    dropped peer's, whose slot may still be valid) carries the digit
-    ``2^bits``, as does a slot no lane fills (an overflowed exchange;
-    its words read the exchange's fill): both sort past the valid lanes,
-    as in the reference's sort on ``(digit, slot)``, so the n lanes and
-    their digits are the reference's."""
+    sort the n digits stably: ``(sorted digits, words, (h, lo))``.  A
+    lane at or past its row's count (a dropped peer's, whose slot may
+    still be valid) carries the digit ``2^bits``, as does a slot no lane
+    fills (an overflowed exchange; its words read the exchange's fill):
+    both sort past the valid lanes and count in no bin, as in the
+    reference's sort on ``(digit, slot)``, so the n lanes and their digits
+    are the reference's."""
     d, *placed = xeng.slot_place(recv, slot, n,
                                  digit=(w_idx, shift, digit_bits, recv_cnt))
-    return _digit_sort(d, tuple(placed))
+    return radix.digit_sort(tuple(placed), digit_bits, digits=d)
 
 
 def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
@@ -172,7 +180,8 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
     (``block_send_segments``), packs with K6, moves with K7, and computes
     the next pass's lane slots in the ``pre_exchange`` window.  Both give
     the same bytes.  ``local_engine="radix_pallas"`` runs pass 1 with K4;
-    the later passes' digit sorts are ``torch.sort`` under either engine.
+    the later passes' digit sorts are ``radix.digit_sort`` under either
+    engine.
 
     Returns ``(sorted shards, max_send_cnt over passes)``; the latter above
     ``cap`` means an exchange overflowed and the caller regrows.  With a
@@ -181,7 +190,6 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
     n = words[0][0].numel()
     local = coll.local_ranks(n_ranks, mesh)
     pos = {r: i for i, r in enumerate(local)}
-    n_bins = 1 << digit_bits
     fused = xeng.is_pallas(exchange_engine)
     dev0 = words[0][0].device
     max_cnt = torch.zeros((), dtype=torch.int32, device=dev0)
@@ -194,20 +202,19 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
     slot_carry = None    # pallas engine: the lane slots from pre_exchange
     for k, (w_idx, shift) in enumerate(plan):
         with _pass_span(k + 1, w_idx, shift, digit_bits, n, cap):
-            sds, sorted_words = [], []
+            sorted_words, hist = [], []
             for i, r in enumerate(local):
                 if recv is None:
-                    sd, sw = _first_pass(words[i], w_idx, shift, digit_bits, local_engine)
+                    _, sw, h = _first_pass(words[i], w_idx, shift, digit_bits, local_engine)
                 else:
                     slot = slot_carry[i] if fused else _lane_slots(
                         recv_cnt[i], *prev[i], n, cap, r)
-                    sd, sw = _merge_pass(recv[i], recv_cnt[i], slot, w_idx, shift,
-                                         digit_bits, n)
-                sds.append(sd)
+                    _, sw, h = _merge_pass(recv[i], recv_cnt[i], slot, w_idx, shift,
+                                           digit_bits, n)
                 sorted_words.append(sw)
+                hist.append(h)
             recv = slot_carry = None
 
-            hist = [kernels.histogram_sorted(sd, n_bins) for sd in sds]
             H, tot, rank_base = coll.exscan_counts([h for h, _ in hist], mesh)
             digit_base = [coll.exclusive_cumsum(t) for t in tot]
             base = [digit_base[i] + rank_base[i][r] for i, r in enumerate(local)]
@@ -235,7 +242,7 @@ def radix_sort_spmd(words: Sequence[Words], n_words: int, digit_bits: int,
                     sorted_words, [s for s, _ in segs], [c for _, c in segs], cap,
                     n_ranks, pack=pack, engine=exchange_engine, mesh=mesh)
                 prev = [(H[i], digit_base[i], rank_base[i]) for i in range(len(local))]
-            del sorted_words, sds
+            del sorted_words
         max_cnt = torch.maximum(max_cnt, mc.to(dev0))
 
     out = []

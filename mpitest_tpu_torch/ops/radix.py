@@ -23,6 +23,16 @@ ran, in either form (the reference's ``_PASS_LAUNCHES``); ``LAUNCHES
 ["radix_pass"]`` and ``LAUNCHES["radix_histogram"]`` (``ops/_build.py``)
 add one per kernel call only.
 
+:func:`digit_sort` is the distributed radix's per-rank digit sort
+(``models/radix_sort.py``): a stable counting sort of 1-4 word planes by
+one digit of up to 16 bits, with the digit's histogram, and
+:func:`digit_count` its count alone (the capacity probe).  A CUDA tensor
+runs ``csrc/radix.cu``'s ``digit_count`` (one launch: the histogram, its
+offsets and the pass histograms in one read of the digit) and one
+``digit_scatter`` launch a pass of at most :data:`SWEEP_BITS` bits; each
+entry counts in ``LAUNCHES``.  A CPU tensor runs :func:`digit_sort_plain`
+(``torch.sort(stable=True)`` and a gather) or :func:`digit_count_plain`.
+
 :func:`merge_order` (K8) is the inner loop of the external sort's k-way
 merge under ``radix_pallas`` (``store/merge.py``): the permutation that
 sorts at most :data:`MERGE_MAX_ELEMS` multi-plane keys lexicographically,
@@ -86,8 +96,22 @@ _MERGE_PLAIN_ROWS = 512
 
 _PASS_LAUNCHES = 0
 
+#: Widest digit of the digit sort on a card (its count's 2^16 bins;
+#: ``kDigitMaxBits``).
+DIGIT_SORT_MAX_BITS = 16
+#: Widest digit of one of the digit sort's scatter passes (``kSweepBits``).
+SWEEP_BITS = 9
+#: Bins of a scatter pass's status row and histogram (``kSweepBins``).
+SWEEP_BINS = 1 << SWEEP_BITS
+#: Words of the digit sort's count buffer before its histogram: the two
+#: pass histograms, a tile counter a pass, the count's grid-barrier counter
+#: and a pad, and the totals of its scan's 16 slices (``kCountHead``).
+COUNT_HEAD = 2 * SWEEP_BINS + 4 + 16
+
 _build.LAUNCHES["radix_pass"] = 0
 _build.LAUNCHES["radix_histogram"] = 0
+_build.LAUNCHES["digit_count"] = 0
+_build.LAUNCHES["digit_scatter"] = 0
 _build.LAUNCHES["merge_order"] = 0
 
 
@@ -156,6 +180,9 @@ _SIGNATURES = {
     "radix_histogram": (_P, _P, _P, _P, _I, _L, _P, _I, _P, _L, _P),
     "radix_pass": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
                    _P, _L, _P),
+    "digit_count": (_P, _L, _I, _I, _I, _I, _P, _P, _L, _P),
+    "digit_scatter": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
+                      _P, _P, _L, _P),
 }
 MERGE_SIGNATURES = {
     "merge_order": (_P, _I, _I, _P, _P),
@@ -273,6 +300,144 @@ def fused_radix_sort(words: Words,
         _PASS_LAUNCHES += 1
         src = dst
     return src
+
+
+# ------------------------------------------------------ the digit sort
+
+
+def sweep_split(key_bits: int) -> tuple[int, ...]:
+    """Bits of each scatter pass of a ``key_bits``-wide digit, least
+    significant first: one pass up to :data:`SWEEP_BITS` bits, else two,
+    the upper one taking the odd bit (16 bits: 8 + 8; a 16-bit digit with
+    its sentinel, 17 bits: 8 + 9)."""
+    if key_bits <= SWEEP_BITS:
+        return (key_bits,)
+    low = key_bits // 2
+    return (low, key_bits - low)
+
+
+def sweep_status_words(n: int) -> int:
+    """32-bit words of the scatter passes' look-back status: one 64-bit
+    word per tile and bin of a pass."""
+    return tiles(n) * SWEEP_BINS * 2
+
+
+def digit_sort_plain(words: Words, bits: int, digits: torch.Tensor | None = None,
+                     w_idx: int = 0, shift: int = 0
+                     ) -> tuple[torch.Tensor | None, Words, tuple[torch.Tensor, torch.Tensor]]:
+    """Plain PyTorch version of :func:`digit_sort`: a stable ``torch.sort``
+    of the digit, a gather of every word plane by its order, and the
+    histogram of the sorted digits by binary search."""
+    from mpitest_tpu_torch.ops import kernels     # kernels imports this module
+    d = digits if digits is not None else kernels.digit_at(words[w_idx], shift, bits)
+    sd, order = torch.sort(d, stable=True)
+    hist = kernels.histogram_sorted(sd, 1 << bits)
+    return (None if digits is None else sd), tuple(w[order] for w in words), hist
+
+
+def digit_count_plain(word: torch.Tensor, shift: int, bits: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`digit_count`: a bincount of the
+    digit and its exclusive cumulative sum."""
+    from mpitest_tpu_torch.ops import kernels     # kernels imports this module
+    h = kernels.histogram(kernels.digit_at(word, shift, bits), 1 << bits)
+    return h, torch.cumsum(h, 0, dtype=torch.int32) - h
+
+
+def _check_digit(bits: int, shift: int, n: int) -> None:
+    if not 1 <= bits <= DIGIT_SORT_MAX_BITS:
+        raise ValueError(f"digit of {bits} bits: the CUDA digit sort takes "
+                         f"1..{DIGIT_SORT_MAX_BITS}")
+    if not 0 <= shift < 32:
+        raise ValueError(f"digit shift {shift} outside a 32-bit word")
+    if n >= 1 << 31:
+        raise ValueError(f"n={n}: the CUDA digit sort takes fewer than 2^31 keys")
+
+
+def _launch_count(device: torch.device, key: torch.Tensor, n: int, shift: int,
+                  key_bits: int, bits: int, counts: torch.Tensor,
+                  status: torch.Tensor | None) -> None:
+    _build.launch(_lib(), "digit_count", device, key.data_ptr(), n, shift, key_bits,
+                  bits, sweep_split(key_bits)[0], counts.data_ptr(),
+                  None if status is None else status.data_ptr(),
+                  0 if status is None else status.numel())
+
+
+def _count_buffer(device: torch.device, bits: int) -> torch.Tensor:
+    return torch.empty(COUNT_HEAD + 2 * (1 << bits), dtype=torch.int32, device=device)
+
+
+def _hist(counts: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    nb = 1 << bits
+    return counts[COUNT_HEAD:COUNT_HEAD + nb], counts[COUNT_HEAD + nb:]
+
+
+def digit_sort(words: Words, bits: int, digits: torch.Tensor | None = None,
+               w_idx: int = 0, shift: int = 0
+               ) -> tuple[torch.Tensor | None, Words, tuple[torch.Tensor, torch.Tensor]]:
+    """Stable sort of word planes by one radix digit, with the digit's
+    histogram: ``(sorted digits, sorted words, (h, lo))``.
+
+    The digit is ``digits`` when given: an int32 plane of values in
+    ``[0, 2^bits]``, where ``2^bits`` marks a lane that sorts last and
+    counts in no bin (a dropped peer's lane, an unfilled slot); it is
+    sorted with the words and returned first.  Otherwise it is the
+    unsigned ``bits``-wide digit of ``words[w_idx]`` at bit ``shift``
+    (``kernels.digit_at``), and the first item is None.  ``h[b]`` counts
+    digit b and ``lo[b]`` is its first position in the sorted order
+    (``kernels.histogram_sorted``'s pair, int32 ``[2^bits]``).
+
+    A CUDA tensor runs the kernels: one ``digit_count`` launch, then one
+    ``digit_scatter`` launch a pass of :func:`sweep_split` (two for a
+    16-bit digit, with or without its sentinel), each moving the planes
+    themselves; ``bits`` 1..16.  A CPU tensor runs
+    :func:`digit_sort_plain`.  At most 4 planes in all, the digit plane
+    included; the outputs are new tensors (n = 0 hands the inputs back)."""
+    words = tuple(words)
+    if digits is None:
+        planes, key, key_shift = words, w_idx, shift
+        key_bits = min(bits, 32 - shift)
+    else:
+        planes, key, key_shift, key_bits = (digits,) + words, 0, 0, bits + 1
+    n = int(planes[0].numel())
+    if not _on_card(planes, n, what="digit sort"):
+        return digit_sort_plain(words, bits, digits, w_idx, shift)
+    _check_digit(bits, shift, n)
+    dev = planes[0].device
+    if n == 0:
+        zeros = torch.zeros(1 << bits, dtype=torch.int32, device=dev)
+        return digits, words, (zeros, zeros.clone())
+    counts = _count_buffer(dev, bits)
+    status = torch.empty(sweep_status_words(n), dtype=torch.int32, device=dev)
+    _launch_count(dev, planes[key], n, key_shift, key_bits, bits, counts, status)
+    src, at = planes, key_shift
+    for k, b in enumerate(sweep_split(key_bits)):
+        dst = tuple(torch.empty_like(p) for p in planes)
+        _build.launch(_lib(), "digit_scatter", dev, *_ptrs(src), *_ptrs(dst),
+                      len(planes), n, key, at, b, k, counts.data_ptr(),
+                      status.data_ptr(), status.numel())
+        src, at = dst, at + b
+    if digits is None:
+        return None, src, _hist(counts, bits)
+    return src[0], src[1:], _hist(counts, bits)
+
+
+def digit_count(word: torch.Tensor, shift: int, bits: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(h, lo)`` of the unsigned ``bits``-wide digit of ``word`` at bit
+    ``shift``, as :func:`digit_sort` gives them, with no key moved.  A
+    CUDA tensor: one ``digit_count`` launch; a CPU tensor:
+    :func:`digit_count_plain`."""
+    n = int(word.numel())
+    if not _on_card((word,), n, what="digit count"):
+        return digit_count_plain(word, shift, bits)
+    _check_digit(bits, shift, n)
+    if n == 0:
+        zeros = torch.zeros(1 << bits, dtype=torch.int32, device=word.device)
+        return zeros, zeros.clone()
+    counts = _count_buffer(word.device, bits)
+    _launch_count(word.device, word, n, shift, min(bits, 32 - shift), bits, counts, None)
+    return _hist(counts, bits)
 
 
 # ------------------------------------------------------ K8: merge order

@@ -226,7 +226,7 @@ def test_signature_arity_matches_source():
     src = (Path(_build.CSRC) / "radix.cu").read_text()
     entries = re.findall(r"^int (\w+)\(([^)]*)\)", src, re.M)
     assert sorted(e for e, _ in entries) == sorted(radix._SIGNATURES) == [
-        "radix_histogram", "radix_pass"]
+        "digit_count", "digit_scatter", "radix_histogram", "radix_pass"]
     for entry, params in entries:
         assert len(radix._SIGNATURES[entry]) == params.count(",") + 1, entry
         assert "stream" in params.split(",")[-1], entry
