@@ -8,7 +8,9 @@ root names the cell, its configuration file and its traffic mix
 ``sortbench/e2e/<name>.py`` (end to end) or ``sortbench/metrics/<name>.py``
 (per layer), a module with ``read(...) -> float | None``; the kernel
 stages are the pattern files of ``sortbench/stages/``.  A new cell, mix,
-metric or stage pattern is a new file and a new entry, never an edit.
+metric or stage pattern is a new file and a new entry, never an edit of a
+file; a metric with no ``workloads`` list is reported by every cell, and a
+cell joins a metric that has one by adding its name to that list.
 
 A run: check the cards, make the key pool on the card from the seed,
 build the program's call, warm it up on every array of the pool, then

@@ -27,8 +27,8 @@ from mpitest_tpu_torch.ops import kernels
 from mpitest_tpu_torch.ops.keys import SIGN_BIT, codec_for
 from sortbench import harness, reference
 
-#: The benchmark's cells, and the sample sort's traffic on the eight-rank
-#: configuration (a cell left for later, whose comparison is held here too).
+#: The benchmark's int32 cells (the int64 cell's comparison is held in
+#: ``tests/test_torch_int64_cell.py``).
 CELLS = ["int32-2p30-r1.sort", "int32-2p28-r8.radix", "int32-2p28-r8.sample"]
 LOG2_N = 14
 

@@ -79,6 +79,9 @@ def test_a_dropped_file_is_found_with_no_edit(tmp_bench: harness.Bench, what: st
         assert (cell.keys, cell.key_bytes, cell.config["ranks"]) == (4096, 32768, 2)
         out = harness.run(tmp_bench, cell, 5, 0.1, False, time.perf_counter(), device="cpu")
         assert out["correct"] and out["metrics"]["mkeys_s"]["value"] > 0
+        # the metrics with no ``workloads`` list; a footprint is reported once
+        # the cell adds its name to the list of a ``peak_mem_gib`` metric
+        assert set(out["metrics"]) == {"mkeys_s", "setup_s"}
     elif what == "traffic":
         (home / "traffic" / "burst.json").write_text(json.dumps(
             {"algorithm": "sample", "loop": "closed", "callers": 1, "think_ms": 0,
@@ -222,12 +225,30 @@ def test_benchmark_json_keeps_to_its_shape(bench: harness.Bench) -> None:
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
 
 
+#: The kinds of end-to-end metric, each reported once by every cell; a
+#: metric's kind is its name before the first dot (``peak_mem_gib.sample``).
+E2E_KINDS = ["mkeys_s", "peak_mem_gib", "setup_s"]
+
+
 def test_sizes_and_seeds_fit_the_contract(bench: harness.Bench) -> None:
     spec = bench.spec
     assert spec["command"] == ["python3", "sortbench/run.py"]
-    assert {m["name"] for m in spec["end_to_end"]} == {"mkeys_s", "peak_mem_gib", "setup_s"}
+    cells = {w["name"] for w in spec["workloads"]}
+    kind = {m["name"]: m["name"].split(".")[0] for m in spec["end_to_end"]}
+    assert sorted(set(kind.values())) == E2E_KINDS
+    for k in E2E_KINDS:
+        alike = {(m["unit"], m["better"]) for m in spec["end_to_end"] if kind[m["name"]] == k}
+        assert len(alike) == 1
+    assert "workloads" not in next(m for m in spec["end_to_end"] if m["name"] == "setup_s")
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "workloads" in m or m in spec["per_layer"]:
+            assert m["workloads"] and set(m["workloads"]) <= cells
+            assert len(m["workloads"]) == len(set(m["workloads"]))
+    reports = {c: {m["name"] for m in bench.metrics(c, "end_to_end")} for c in cells}
+    for c, names in reports.items():
+        assert sorted(kind[n] for n in names) == E2E_KINDS
     for m in spec["per_layer"]:
         assert m["moves"] == "mkeys_s" and m["workloads"]
-        assert set(m["workloads"]) <= {w["name"] for w in spec["workloads"]}
+        assert all(m["moves"] in reports[c] for c in m["workloads"])
     assert all(w["chips"] == 1 for w in spec["workloads"])
     assert reference.count_mismatches(torch.arange(5).numpy(), torch.arange(4)) == 1
